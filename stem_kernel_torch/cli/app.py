@@ -1,0 +1,265 @@
+"""Shared application flow: train (Gram build) and predict (test rows).
+
+Port of ``stem_kernel_tpu/cli/app.py`` (the reference's App<Kernel,
+LoaderFactory>, stem_kernel/common/framework.h:100-416):
+
+- positional grammar ``output [label file]... [--test [label file]...]``
+  (Options::parse_extra_args, framework.cpp:48-139), with glob expansion;
+- train: load examples -> Gram matrix -> optional cosine normalization ->
+  LIBSVM PRECOMPUTED output (gzip/bzip2 by suffix);
+- predict: load the train set, restrict to support vectors of the given
+  models, compute test rows + self values in chunks, normalize against train
+  diagonals, write matrix rows / norm file, and run SVM prediction per model
+  (framework.h:167-306).
+
+Everything runs on one device, named explicitly.  Multi-device sharding,
+checkpointing, profiler traces and pf_scale side files are not ported yet:
+their options are rejected, never ignored.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Mapping
+
+import numpy as np
+import torch
+
+from ..gram.engine import PairKernelEngine
+from ..gram.io import _open_write, write_norm, write_precomputed, write_rows
+from ..io.parsers import expand_globs, iter_alignments
+from ..io.profile import Alignment
+from ..svm.model import load_model, load_sv_index
+from ..svm.train import svm_predict_probability, svm_predict_values
+
+# options of the JAX CLI that need later slices of the port
+NOT_YET_PORTED = {
+    "devices": "--devices", "single_device": "--single-device",
+    "checkpoint": "--checkpoint", "trace_dir": "--trace-dir",
+    "use_pf_scale_file": "--use-pf-scale-file",
+}
+
+
+@dataclass
+class AppOptions:
+    """Common options (Options, framework.cpp:10-46)."""
+
+    output: str = ""
+    labels: list[str] = field(default_factory=list)
+    files: list[str] = field(default_factory=list)
+    ts_labels: list[str] = field(default_factory=list)
+    ts_files: list[str] = field(default_factory=list)
+    predict_mode: bool = False
+    normalize: bool = False
+    norm_output: str = ""
+    predict_only: bool = False  # --no-matrix
+    model_files: list[str] = field(default_factory=list)
+    predict_outputs: list[str] = field(default_factory=list)
+    stream_chunk: int = 64  # test examples featurized per predict chunk
+
+
+def add_common_options(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="device to run on: 'cuda' (the hand-written kernels; "
+                        "fails when no GPU is present) or 'cpu' (the plain "
+                        "torch versions)")
+    p.add_argument("-n", "--normalize", action="store_true",
+                   help="normalize the kernel matrix")
+    p.add_argument("-x", "--norm", default="",
+                   help="set the filename for norms of test examples")
+    p.add_argument("--no-matrix", action="store_true",
+                   help="do not output matrix")
+    p.add_argument("--model", action="append", default=[],
+                   help="the model file trained by svm-train if you already have")
+    p.add_argument("--predict", action="append", default=[],
+                   help="output file name of prediction results")
+    p.add_argument("-t", "--threads", type=int, default=1,
+                   help="accepted for compatibility (one device, one stream)")
+    p.add_argument("--stream-chunk", type=int, default=64,
+                   help="predict mode: featurize this many test examples at a time")
+    p.add_argument("--devices", type=int, default=None, help="not yet ported")
+    p.add_argument("--single-device", action="store_true", help="not yet ported")
+    p.add_argument("--checkpoint", default="", help="not yet ported")
+    p.add_argument("--trace-dir", default="", help="not yet ported")
+    p.add_argument("--use-pf-scale-file", action="store_true", help="not yet ported")
+    # the positional grammar "output [label file]... [--test ...]" is collected
+    # from unrecognized args (labels like -1 confuse argparse), mirroring the
+    # reference's collect_unrecognized pattern (stem_kernel_lite/main.cpp:152-163)
+
+
+def reject_unported(p: argparse.ArgumentParser, ns: argparse.Namespace,
+                    names: Mapping[str, str]) -> None:
+    """Exit with a usage error for any given option that is not ported."""
+    for attr, flag in names.items():
+        if getattr(ns, attr, None) not in (None, False, ""):
+            p.error(f"{flag} is not yet ported to stem_kernel_torch")
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device the CLI runs on; 'cuda' without a GPU raises."""
+    if name == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "--device cuda: no CUDA device is available (pass --device cpu to "
+            "run the plain torch versions on the CPU)")
+    return torch.device(name)
+
+
+def parse_args_with_positionals(p: argparse.ArgumentParser, argv):
+    ns, rest = p.parse_known_args(argv)
+    if not rest:
+        p.error("missing positional arguments: output [label file] ...")
+    ns.args = rest
+    return ns
+
+
+def parse_positional(ns: argparse.Namespace) -> AppOptions:
+    """parse_extra_args semantics (framework.cpp:48-139)."""
+    extra = ns.args
+    opts = AppOptions(
+        output=extra[0],
+        normalize=ns.normalize,
+        norm_output=ns.norm,
+        predict_only=ns.no_matrix,
+        model_files=list(ns.model),
+        predict_outputs=list(ns.predict),
+        stream_chunk=ns.stream_chunk,
+    )
+    if "--test" in extra:
+        opts.predict_mode = True
+        x = extra.index("--test")
+        pairs = extra[1:x]
+        ts = extra[x + 1:]
+    else:
+        pairs = extra[1:]
+        ts = []
+    opts.labels = pairs[0::2]
+    opts.files = pairs[1::2]
+    opts.ts_labels = ts[0::2]
+    opts.ts_files = ts[1::2]
+    return opts
+
+
+def load_labeled(labels: list[str], files: list[str], verbose: bool = True):
+    """Examples per (label, glob) pair, with per-file timing on stderr."""
+    alignments: list[Alignment] = []
+    out_labels: list[str] = []
+    for label, pattern in zip(labels, files):
+        for path in expand_globs([pattern]):
+            t0 = time.time()
+            n0 = len(alignments)
+            for aln in iter_alignments(path):
+                alignments.append(aln)
+                out_labels.append(label)
+            if verbose:
+                print(f"loading {path} as label {label} ({len(alignments)-n0} ex, "
+                      f"{time.time()-t0:.1f}s) done.", file=sys.stderr)
+    return alignments, out_labels
+
+
+# featurize: alignments -> (features dict, aux); make_kernel_fn: aux -> kernel_fn
+Featurizer = Callable[[list[Alignment]], tuple[Mapping[str, torch.Tensor], object]]
+
+
+def run_app(
+    opts: AppOptions,
+    featurize: Featurizer,
+    make_kernel_fn: Callable[[object], Callable],
+    *,
+    device,
+    batch_size: int = 256,
+    log_kernel: bool = False,
+    featurize_buckets=None,
+    merge_aux=None,
+) -> None:
+    """Execute the train or predict flow on ``device``.
+
+    ``log_kernel``: the kernel_fn returns log K; normalization happens in log
+    space.  ``featurize_buckets``: alignments -> list of (indices, feats, aux)
+    shape-buckets; when given, the train Gram is assembled block-wise at
+    per-bucket pad shapes (gram.bucketed).  ``merge_aux``: combine train and
+    test-chunk featurizer aux (``max`` for iteration bounds) when streaming
+    predict chunks; None reuses the train aux.
+    """
+    t_start = time.time()
+    train_alns, train_labels = load_labeled(opts.labels, opts.files)
+    if not opts.predict_mode:
+        if featurize_buckets is not None:
+            from ..gram.bucketed import bucketed_gram
+
+            g = bucketed_gram(featurize_buckets(train_alns), make_kernel_fn,
+                              device=device, normalize=opts.normalize,
+                              batch_size=batch_size, log_values=log_kernel)
+        else:
+            feats, aux = featurize(train_alns)
+            eng = PairKernelEngine(make_kernel_fn(aux), feats, device=device,
+                                   batch_size=batch_size, log_values=log_kernel)
+            g = eng.gram(normalize=opts.normalize)
+        write_precomputed(opts.output, train_labels, g)
+        print(f"elapsed time: {time.time()-t_start:.1f}s", file=sys.stderr)
+        return
+
+    # ---- predict mode (streaming: fixed-size test chunks) ----
+    sv_index = None
+    models = []
+    if opts.model_files:
+        sv_index = load_sv_index(opts.model_files)
+        models = [load_model(m) for m in opts.model_files]
+    test_alns, test_labels = load_labeled(opts.ts_labels, opts.ts_files)
+
+    train_feats, aux_tr = featurize(train_alns)
+    eng = PairKernelEngine(make_kernel_fn(aux_tr), train_feats, device=device,
+                           batch_size=batch_size, log_values=log_kernel)
+    diag = eng.diagonal(sv_index=sv_index)
+
+    chunk = max(1, int(opts.stream_chunk or 64))
+    all_norm_rows, all_self = [], []
+    # self values feed only normalization and the norm file
+    need_self = bool(opts.normalize) or bool(opts.norm_output)
+    for lo in range(0, len(test_alns), chunk):
+        feats_c, aux_c = featurize(test_alns[lo: lo + chunk])
+        if merge_aux is not None:
+            eng.kernel_fn = make_kernel_fn(merge_aux(aux_tr, aux_c))
+        rows, self_vals = eng.rows(feats_c, sv_index=sv_index, with_self=need_self)
+        if log_kernel:
+            cols = np.arange(rows.shape[1]) if sv_index is None else np.asarray(sv_index)
+            norm_rows = np.zeros_like(rows)
+            if opts.normalize:
+                norm_rows[:, cols] = np.exp(
+                    rows[:, cols] - 0.5 * (diag[None, cols] + self_vals[:, None]))
+            else:
+                norm_rows[:, cols] = np.exp(rows[:, cols].astype(np.float64))
+            self_vals = np.exp(self_vals.astype(np.float64))
+        else:
+            norm_rows = rows.copy()
+            if opts.normalize:
+                denom = np.sqrt(np.clip(diag, 1e-300, None))[None, :] * np.sqrt(
+                    np.clip(self_vals, 1e-300, None))[:, None]
+                cols = np.flatnonzero(diag > 0)
+                norm_rows[:, cols] = rows[:, cols] / denom[:, cols]
+        all_norm_rows.append(norm_rows)
+        all_self.append(self_vals)
+
+    norm_rows = (np.concatenate(all_norm_rows) if all_norm_rows
+                 else np.zeros((0, len(train_alns)), np.float32))
+    self_vals = (np.concatenate(all_self) if all_self else np.zeros((0,), np.float64))
+
+    if not opts.predict_only:
+        with _open_write(opts.output) as f:
+            write_rows(f, test_labels, norm_rows)
+    if opts.norm_output:
+        write_norm(opts.norm_output, self_vals)
+
+    outs = opts.predict_outputs or [f"{opts.output}.pred{i}" for i in range(len(models))]
+    for model, out_path in zip(models, outs):
+        with open(out_path, "w") as f:
+            for t, label in enumerate(test_labels):
+                if model.prob_A is not None:
+                    pred, prob = svm_predict_probability(model, norm_rows[t])
+                    f.write(f"{label} {pred} {' '.join(f'{p:g}' for p in prob)}\n")
+                else:
+                    pred, dec = svm_predict_values(model, norm_rows[t])
+                    f.write(f"{label} {dec[0]:g}\n")
+    print(f"elapsed time: {time.time()-t_start:.1f}s", file=sys.stderr)

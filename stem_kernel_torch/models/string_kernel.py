@@ -1,0 +1,114 @@
+"""Gap-weighted profile string kernel, batched in torch.
+
+Port of ``stem_kernel_tpu/models/string_kernel.py`` (profile string kernel
+of stem_kernel/stem_kernel_lite/string_kernel.cpp:66-132):
+
+    v        = G0[i-1][j-1] * w_x[i-1] * w_y[j-1] * subst(x[i-1], y[j-1])
+    K1[j]    = v + K1[j-1]
+    G1[j]    = v + G1[j-1]*gap
+    K0[i][j] = K1[j] + K0[i-1][j]
+    G0[i][j] = G1[j] + G0[i-1][j]*gap
+
+with K0[*][0] = K0[0][*] = 1 and the G0 boundary gap^i / gap^j; the result
+is K0[|x|][|y|].  The per-cell scores are one (B, Lx, Ly) tensor; the row
+recursion is a Python loop over rows, and each row's G1 recurrence is a
+product with the (Ly, Ly) Toeplitz matrix of gap powers
+(:mod:`..ops.recurrence`), exact at any length.
+
+Padding contract: with the score tensor zero outside each pair's valid
+region, the value at the padded corner equals the value at the true corner.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..io.alphabet import N_RNA
+from ..ops.recurrence import linear_recurrence, toeplitz_powers
+from .ribosum_data import RIBOSUM_S
+
+
+def ribosum_subst_table(alpha: float) -> np.ndarray:
+    """exp(RIBOSUM_S * alpha) — StringKernel ctor, string_kernel.cpp:11-21."""
+    return np.exp(RIBOSUM_S * alpha).astype(np.float32)
+
+
+def match_mismatch_table(match: float, mismatch: float) -> np.ndarray:
+    """match on the diagonal, mismatch elsewhere (string_kernel.cpp:23-34)."""
+    t = np.full((N_RNA, N_RNA), mismatch, dtype=np.float32)
+    np.fill_diagonal(t, match)
+    return t
+
+
+def profile_subst_scores(px: torch.Tensor, py: torch.Tensor,
+                         subst: torch.Tensor) -> torch.Tensor:
+    """Expected substitution score between profile columns, (B, Lx, Ly).
+
+    Entry [b, i, j] is sum_ab subst[a,b] px[i,a] py[j,b] / sum_ab px[i,a]
+    py[j,b], and 1.0 where the normalizer is zero (all-gap column), as
+    subst_score at stem_kernel/stem_kernel_lite/string_kernel.cpp:44-64.
+    """
+    num = torch.einsum("nia,ab,njb->nij", px, subst, py)
+    den = torch.einsum("nia,njb->nij", px, py)
+    zero = den == 0
+    return torch.where(zero, torch.ones_like(num),
+                       num / torch.where(zero, torch.ones_like(den), den))
+
+
+def gap_weighted_string_kernel(scores: torch.Tensor, gap: float) -> torch.Tensor:
+    """K0[Lx][Ly] for a (B, Lx, Ly) score tensor (already zero-masked)."""
+    bsz, lx, ly = scores.shape
+    dt, dev = scores.dtype, scores.device
+    gap = float(gap)
+    tmat = toeplitz_powers(gap, ly, dtype=dt, device=dev)
+    k0 = torch.ones((bsz, ly + 1), dtype=dt, device=dev)
+    g0 = (torch.tensor(gap, dtype=dt, device=dev)
+          ** torch.arange(ly + 1, dtype=dt, device=dev)).expand(bsz, ly + 1)
+    ones_col = torch.ones((bsz, 1), dtype=dt, device=dev)
+    for i in range(lx):
+        v = g0[:, :-1] * scores[:, i, :]  # v[j] uses G0[i-1][j-1]
+        k1 = torch.cumsum(v, dim=-1)
+        g1 = linear_recurrence(gap, v, matrix=tmat)
+        k0 = torch.cat([ones_col, k1 + k0[:, 1:]], dim=-1)
+        g0 = torch.cat([g0[:, :1] * gap, g1 + gap * g0[:, 1:]], dim=-1)
+    return k0[:, -1]
+
+
+class StringKernel(nn.Module):
+    """Profile string kernel with RIBOSUM or match/mismatch substitution.
+
+    ``subst`` is a buffer, so ``.to(device)`` moves it with the module.
+    """
+
+    def __init__(self, gap: float, *, alpha: float | None = None,
+                 match: float | None = None, mismatch: float | None = None,
+                 subst: np.ndarray | None = None) -> None:
+        super().__init__()
+        if subst is None:
+            if alpha is not None:
+                subst = ribosum_subst_table(alpha)
+            elif match is not None and mismatch is not None:
+                subst = match_mismatch_table(match, mismatch)
+            else:
+                raise ValueError("need alpha, (match, mismatch) or subst")
+        self.register_buffer("subst", torch.tensor(np.asarray(subst, np.float32)))
+        self.gap = float(gap)
+
+    def forward(self, px, lx, py, ly, wx=None, wy=None) -> torch.Tensor:
+        """Kernel values for a batch of pairs.
+
+        px, py: (B, L, N_RNA) profiles; lx, ly: (B,) true lengths;
+        wx, wy: (B, L) position weights or None (treated as 1).
+        """
+        if wx is None:
+            wx = torch.ones(px.shape[:2], dtype=px.dtype, device=px.device)
+        if wy is None:
+            wy = torch.ones(py.shape[:2], dtype=py.dtype, device=py.device)
+        scores = profile_subst_scores(px, py, self.subst)
+        scores = scores * (wx[:, :, None] * wy[:, None, :])
+        mask_x = torch.arange(px.shape[1], device=px.device)[None, :] < lx[:, None]
+        mask_y = torch.arange(py.shape[1], device=py.device)[None, :] < ly[:, None]
+        scores = scores * (mask_x[:, :, None] & mask_y[:, None, :])
+        return gap_weighted_string_kernel(scores, self.gap)

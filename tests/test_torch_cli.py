@@ -1,0 +1,176 @@
+"""The slice as a whole: the port's stem_kernel_lite CLI against the JAX CLI.
+
+Both CLIs read the same FASTA files.  The port runs with ``--device cpu``
+(its plain torch versions) and both with ``--precision highest``.  The
+normalized matrices must agree within 1.4e-2 max abs, the cross-backend
+band of stem_kernel_lite (fold BPP f32 deltas amplified through the DAG
+node weights).
+"""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from stem_kernel_tpu.cli import stem_kernel_lite as j_cli
+from stem_kernel_torch.cli import stem_kernel_lite as t_cli
+from stem_kernel_torch.cli import svm_tools
+from stem_kernel_torch.gram.io import read_precomputed
+from stem_kernel_torch.utils.shuffle import dinucleotide_shuffle
+
+CLI_BAND = 1.4e-2
+CORE = "gggcgcaagcuugaaagcgcccauaggcuaacguagcuagcuuaagc"  # 47 nt
+
+
+def _data(tmp_path, n=4, seed=9):
+    rng = np.random.default_rng(seed)
+
+    def mutate(s):
+        s = "".join(rng.choice(list("acgu")) if rng.random() < 0.1 else c for c in s)
+        cut = int(rng.integers(0, 12))  # lengths 35..59
+        return s[cut:] if rng.random() < 0.5 else s + "acgu"[: cut % 5] * 3
+
+    pos = [mutate(CORE) for _ in range(n)]
+    neg = [dinucleotide_shuffle(s, rng) for s in pos]
+    assert all(30 <= len(s) <= 60 for s in pos + neg)
+    paths = {}
+    for name, seqs in (("pos", pos), ("neg", neg), ("tpos", pos[:2]), ("tneg", neg[:1])):
+        f = tmp_path / f"{name}.fa"
+        f.write_text("".join(f">{name}{i}\n{s}\n" for i, s in enumerate(seqs)))
+        paths[name] = str(f)
+    return paths
+
+
+def _train_args(out, p):
+    return ["--precision", "highest", "-n", out, "+1", p["pos"], "-1", p["neg"]]
+
+
+def test_train_flow_matches_jax_cli(tmp_path):
+    p = _data(tmp_path)
+    t_out, j_out = str(tmp_path / "t.dat"), str(tmp_path / "j.dat")
+    assert t_cli.main(["--device", "cpu", *_train_args(t_out, p)]) == 0
+    assert j_cli.main(_train_args(j_out, p)) == 0
+    t_labels, t_g = read_precomputed(t_out)
+    j_labels, j_g = read_precomputed(j_out)
+    assert t_labels == j_labels == ["+1"] * 4 + ["-1"] * 4
+    assert t_g.shape == (8, 8) and np.isfinite(t_g).all()
+    np.testing.assert_allclose(np.diag(t_g), 1.0, rtol=1e-5)
+    np.testing.assert_allclose(t_g, t_g.T, atol=1e-7)
+    assert np.abs(t_g - j_g).max() <= CLI_BAND
+
+
+def test_predict_flow_matches_jax_cli(tmp_path):
+    p = _data(tmp_path)
+    km, model = str(tmp_path / "km.dat"), str(tmp_path / "km.model")
+    assert t_cli.main(["--device", "cpu", *_train_args(km, p)]) == 0
+    assert svm_tools.train_main([km, model]) == 0
+    outs = {}
+    for tag, main, extra in (("t", t_cli.main, ["--device", "cpu"]), ("j", j_cli.main, [])):
+        rows, pred, norm = (str(tmp_path / f"{tag}_{f}") for f in ("rows.dat", "pred", "norm"))
+        assert main([*extra, "--precision", "highest", "-n", rows, "--model", model,
+                     "--predict", pred, "-x", norm, "--stream-chunk", "2",
+                     "+1", p["pos"], "-1", p["neg"],
+                     "--test", "+1", p["tpos"], "-1", p["tneg"]]) == 0
+        labels, r = read_precomputed(rows)
+        decs = [float(line.split()[1]) for line in open(pred).read().splitlines()]
+        outs[tag] = (labels, r, np.asarray(decs), np.loadtxt(norm))
+    (tl, tr, td, tn), (jl, jr, jd, jn) = outs["t"], outs["j"]
+    assert tl == jl == ["+1", "+1", "-1"]
+    assert tr.shape == jr.shape == (3, 8) and np.isfinite(tr).all()
+    assert np.abs(tr - jr).max() <= CLI_BAND
+    # a decision value sums coef * K over <= 8 SVs with |coef| <= C = 1
+    np.testing.assert_allclose(td, jd, atol=8 * CLI_BAND)
+    np.testing.assert_allclose(tn, jn, rtol=1e-3)
+
+
+def test_gram_is_bit_identical_across_batch_sizes():
+    from stem_kernel_torch.gram.bucketed import bucketed_gram
+    from stem_kernel_torch.gram.engine import PairKernelEngine
+    from stem_kernel_torch.io.profile import Alignment
+    from stem_kernel_torch.models.composite import (
+        StemLiteConfig, featurize_stem_bucketed, featurize_stem_examples,
+        make_stem_lite_kernel_fn,
+    )
+
+    seqs = ["gggaaaccc", "gcgcaaagcgc", "ggcaaagccaugcaaaagcauggcaaagccaugcaaaagcau",
+            "gggcuauuagcucagugguagagcgcgugcuuagcaugcac", "acguacguacgu", CORE]
+    alns = [Alignment(rows=[s]) for s in seqs]
+    cfg = StemLiteConfig(node_pad_multiple=8)
+    buckets = featurize_stem_bucketed(alns, cfg, device="cpu")
+    assert len(buckets) >= 2
+    make = lambda it: make_stem_lite_kernel_fn(cfg, it, device="cpu")  # noqa: E731
+    g3 = bucketed_gram(buckets, make, device="cpu", normalize=True, batch_size=3)
+    g256 = bucketed_gram(buckets, make, device="cpu", normalize=True, batch_size=256)
+    assert np.array_equal(g3, g256)
+    feats, iters = featurize_stem_examples(alns, cfg, device="cpu")
+    flat = [PairKernelEngine(make(iters), feats, device="cpu", batch_size=bs).gram(normalize=True)
+            for bs in (2, 64)]
+    assert np.array_equal(flat[0], flat[1])
+    np.testing.assert_allclose(g3, flat[0], rtol=2e-4, atol=1e-6)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import stem_kernel_torch\n"
+        "import stem_kernel_torch.cli.stem_kernel_lite\n"
+        "for m in pkgutil.walk_packages(stem_kernel_torch.__path__, 'stem_kernel_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+        "'stem_kernel_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_device_cuda_without_gpu_raises(tmp_path, monkeypatch):
+    p = _data(tmp_path, n=1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        t_cli.main(["--device", "cuda", "-n", str(tmp_path / "k.dat"),
+                    "+1", p["pos"], "-1", p["neg"]])
+
+
+@pytest.mark.parametrize("flag", [["--checkpoint", "ck"], ["--devices", "2"],
+                                  ["--single-device"], ["--trace-dir", "tr"],
+                                  ["--use-pf-scale-file"], ["--use-alifold"],
+                                  ["--use-contrafold", "default"], ["--coarse-shapes"]])
+def test_unported_options_are_rejected(tmp_path, flag, capsys):
+    p = _data(tmp_path, n=1)
+    with pytest.raises(SystemExit) as exc:
+        t_cli.main(["--device", "cpu", *flag, "-n", str(tmp_path / "k.dat"),
+                    "+1", p["pos"], "-1", p["neg"]])
+    assert exc.value.code == 2
+    assert flag[0] in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("log_values", [False, True])
+def test_pair_engine_matches_jax_engine(log_values):
+    """gram (normalized and not), diagonal and rows with sv_index, on a
+    kernel whose values come straight from the features."""
+    import jax.numpy as jnp
+
+    from stem_kernel_tpu.gram.engine import PairKernelEngine as JEngine
+    from stem_kernel_torch.gram.engine import PairKernelEngine as TEngine
+
+    rng = np.random.default_rng(4)
+    train = rng.random((7, 5)).astype(np.float32)
+    test = rng.random((3, 5)).astype(np.float32)
+    sv = np.array([0, 2, 5])
+    j = JEngine(lambda x, y: jnp.sum(x["v"] * y["v"], -1), {"v": train}, batch_size=4,
+                log_values=log_values)
+    t = TEngine(lambda x, y: (x["v"] * y["v"]).sum(-1), {"v": train}, device="cpu",
+                batch_size=4, log_values=log_values)
+    for normalize in (False, True):
+        np.testing.assert_allclose(t.gram(normalize=normalize), j.gram(normalize=normalize),
+                                   rtol=1e-6)
+    np.testing.assert_allclose(t.diagonal(sv_index=sv), j.diagonal(sv_index=sv), rtol=1e-6)
+    t_rows, t_self = t.rows({"v": test}, sv_index=sv)
+    j_rows, j_self = j.rows({"v": test}, sv_index=sv)
+    np.testing.assert_allclose(t_rows, j_rows, rtol=1e-6)
+    np.testing.assert_allclose(t_self, j_self, rtol=1e-6)
