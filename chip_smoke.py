@@ -1,4 +1,4 @@
-"""One-command proof that the PyTorch port runs its main path on one GPU.
+"""One-command proof that the PyTorch port runs its paths on one GPU.
 
     python3 chip_smoke.py
 
@@ -6,19 +6,40 @@ Phases (the first failure exits non-zero; nothing is caught):
 
 1. environment: the card's name and power limit (nvidia-smi), CUDA, TF32 off;
 2. build: the CUDA library from ``stem_kernel_torch/csrc``;
-3. kernel parity: the closure fixed point kernel against its plain torch
+3. K1 parity: the closure fixed point kernel against its plain torch
    version on real DAG features of the corpus (B=256 pairs within the
    largest node bucket, and B=256 pairs across it and the next largest, as
    the Gram's cross-bucket blocks run; true per-pair trip counts), rel 1e-4;
-4. main path: ``stem_kernel_lite`` train on 100 hairpin-family sequences and
+4. stem path: ``stem_kernel_lite`` train on 100 hairpin-family sequences and
    100 dinucleotide shuffles (length 120, fixed seed), ``svm_tools train``,
-   then the predict flow on 40 held-out sequences; the kernel's launch count
-   must rise, the Gram must be finite, symmetric with unit diagonal, the
+   then the predict flow on 40 held-out sequences; K1's launch count must
+   rise, the Gram must be finite, symmetric with unit diagonal, the
    predictions written; a small subset is rerun with ``--device cpu`` (the
    plain versions): the two Grams must agree within the 1.4e-2 CLI band and
    the two folds within 5e-4 BPP;
-5. times with CUDA events / synchronized host clocks.
+5. K1 times with CUDA events / synchronized host clocks;
+6. LA parity: K2-K5 against their plain versions at the shapes of the paths
+   below, each square and Lx != Ly (BPLA factors of the folded corpus at
+   L=120 and random factors at L=400 for K2; random-profile factors at
+   L 32-64 for K3; BLOSUM62 protein scores at L 50-80 for K4 and K5; the
+   corpus's (w_pair, w_unpair) through ``la_log_affine_auto`` for K5), exp
+   rel 1e-3 and log abs 3e-3; the first 3 pairs alone must equal their
+   values inside the B=256 batch bit for bit;
+7. BPLA path: ``bpla_kernel`` train on the corpus (K2), ``svm_tools train``,
+   predict on the 40 held-out sequences, and ``--device cpu`` against
+   ``--device cuda`` on 8 sequences within the 1.3e-3 band;
+8. LA path: ``la_kernel`` train on 100 synthetic proteins (a 60-residue
+   core, 10% mutations, lengths 50-80) and 100 residue shuffles (K4), svm
+   train, predict on 40 held-out proteins, cpu against cuda on 8 proteins;
+9. flagship forward: the normalised exp Gram of ``BPLAKernel`` through
+   ``PairKernelEngine`` on 200 random-profile examples of length 32-64 (K3);
+10. log protein Gram: ``BPLAKernel(BLOSUM62, no_bp=True).log_value`` through
+   ``PairKernelEngine`` on the proteins (rank 22, so K5), which must agree
+   with the LA path's Gram;
+11. K2-K5 times against their plain versions (CUDA events, plain, kernel,
+   kernel, plain) and the BPLA and LA Gram rates.
 
+Before each path every launch count is set to 0, and it is read just after.
 The last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 
@@ -41,6 +62,13 @@ SEQ_LEN = 120
 KERNEL_RTOL = 1e-4
 CLI_BAND = 1.4e-2  # port-vs-plain Gram band (fold f32 deltas through the DAG)
 BPP_BAND = 5e-4  # f32 fold against f32 fold (tests/test_fold_goldens.py)
+LA_EXP_RTOL = 1e-3  # the LA kernels' gates (bench.py --paritycheck)
+LA_LOG_ATOL = 3e-3
+BPLA_BAND = 1.3e-3  # bpla_kernel cross-backend Gram band
+LA_BATCH = 256
+AMINO = "ARNDCQEGHILKMFPSTWYV"
+BPLA = (4.5, 0.11, -8.0, -0.75)  # alpha, beta, gap, ext (bpla_kernel defaults)
+PROT = (0.11, -10.0, -1.0)  # beta, gap, ext (la_kernel defaults)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -64,6 +92,39 @@ def make_family(rng: np.random.Generator, n: int, length: int) -> list[str]:
     return out
 
 
+def make_proteins(rng: np.random.Generator, n: int) -> list[str]:
+    """Protein family: a 60-residue core, 10% mutations, cut or extended to
+    a length in 50..80."""
+    core = rng.choice(list(AMINO), size=60)
+    out = []
+    for _ in range(n):
+        s = [rng.choice(list(AMINO)) if rng.random() < 0.1 else c for c in core]
+        length = int(rng.integers(50, 81))
+        s = s[:length] + list(rng.choice(list(AMINO), size=max(0, length - 60)))
+        out.append("".join(s))
+    return out
+
+
+def trim(rng: np.random.Generator, seqs: list[str], lo: int, hi: int) -> list[str]:
+    """Each sequence cut to a random window of length lo..hi."""
+    out = []
+    for s in seqs:
+        n = int(rng.integers(min(lo, len(s)), min(hi, len(s)) + 1))
+        start = int(rng.integers(0, len(s) - n + 1))
+        out.append(s[start:start + n])
+    return out
+
+
+def random_profiles(rng: np.random.Generator, n: int, lo: int, hi: int) -> dict:
+    """bench.py's random-profile BPLA features, lengths lo..hi, padded to hi."""
+    prof = rng.dirichlet(np.ones(4), size=(n, hi)).astype(np.float32)
+    pl = rng.uniform(0, 0.7, (n, hi)).astype(np.float32)
+    pr = rng.uniform(0, 0.7, (n, hi)).astype(np.float32)
+    pu = np.sqrt(np.clip(1.0 - pl**2 - pr**2, 0, None)).astype(np.float32)
+    return {"profile": prof, "p_left": pl, "p_right": pr, "p_unpair": pu,
+            "length": rng.integers(lo, hi + 1, n).astype(np.int32)}
+
+
 def write_fasta(path: str, seqs: list[str], prefix: str) -> str:
     with open(path, "w") as f:
         f.write("".join(f">{prefix}{i}\n{s}\n" for i, s in enumerate(seqs)))
@@ -81,26 +142,85 @@ def cuda_ms(fn, reps: int) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def timed_pair(kernel, plain, reps: int) -> tuple[float, float]:
+    """(kernel ms, plain ms), measured in turns: plain, kernel, kernel, plain."""
+    kernel()
+    plain()
+    plain_a = cuda_ms(plain, reps)
+    kern_a = cuda_ms(kernel, reps)
+    kern_b = cuda_ms(kernel, reps)
+    plain_b = cuda_ms(plain, reps)
+    return (kern_a + kern_b) / 2, (plain_a + plain_b) / 2
+
+
+def pick(feats: dict, idx: np.ndarray, dev) -> dict:
+    """The rows ``idx`` of a numpy feature dict, as tensors on ``dev``."""
+    return {k: torch.as_tensor(v[idx], device=dev) for k, v in feats.items()}
+
+
+def dims(key: str, ops: list) -> str:
+    """B, Lx, Ly of an LA kernel's operands (factors for K2/K3, else scores)."""
+    if key in ("K2", "K3"):
+        return f"B={ops[0].shape[0]} Lx={ops[0].shape[1]} Ly={ops[1].shape[1]}"
+    return "B={} Lx={} Ly={}".format(*ops[0].shape)
+
+
+def gram_checks(name: str, g: np.ndarray, n: int, labels=None, want_labels=None) -> None:
+    check(g.shape == (n, n), f"{name}: Gram shape {g.shape}")
+    check(labels == want_labels, f"{name}: labels differ")
+    check(bool(np.isfinite(g).all()), f"{name}: Gram not finite")
+    check(float(np.abs(g - g.T).max()) <= 1e-6, f"{name}: Gram not symmetric")
+    check(float(np.abs(np.diag(g) - 1.0).max()) <= 1e-5, f"{name}: Gram diagonal is not 1")
+
+
+def predictions(path: str, n: int, name: str) -> float:
+    """AUC of a prediction file's decision values; checks its line count."""
+    from stem_kernel_torch.utils.roc import roc_curve_and_auc
+
+    lines = open(path).read().splitlines()
+    check(len(lines) == n, f"{name}: {len(lines)} prediction lines, want {n}")
+    y_true = np.array([1.0 if ln.split()[0] == "+1" else -1.0 for ln in lines])
+    dec = np.array([float(ln.split()[1]) for ln in lines])
+    check(bool(np.isfinite(dec).all()), f"{name}: decision values not finite")
+    auc, _ = roc_curve_and_auc(y_true, dec)
+    return auc
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 2
-    from stem_kernel_torch.cli import stem_kernel_lite, svm_tools
-    from stem_kernel_torch.fold.bpmatrix import fold_sequences
+    from stem_kernel_torch.cli import bpla_kernel, la_kernel, stem_kernel_lite, svm_tools
+    from stem_kernel_torch.fold.bpmatrix import bpp_for_alignments, fold_sequences
     from stem_kernel_torch.gram.bucketed import bucketed_gram
+    from stem_kernel_torch.gram.engine import PairKernelEngine
     from stem_kernel_torch.gram.io import read_precomputed
+    from stem_kernel_torch.io.aaprofile import aa_features
     from stem_kernel_torch.io.profile import Alignment
+    from stem_kernel_torch.models.blosum_data import BLOSUM62
+    from stem_kernel_torch.models.bpla import BPLAKernel, la_score_matrix
     from stem_kernel_torch.models.composite import (
         StemLiteConfig, featurize_stem_bucketed, make_stem_lite_kernel_fn,
     )
+    from stem_kernel_torch.models.featurize import bpla_features
     from stem_kernel_torch.models.stem_kernel import fixed_point_operands, subst_co_table
+    from stem_kernel_torch.ops import la
     from stem_kernel_torch.ops._build import build
     from stem_kernel_torch.ops.stem_fixed_point import (
         stem_fixed_point, stem_fixed_point_reference,
     )
-    from stem_kernel_torch.utils.roc import roc_curve_and_auc
     from stem_kernel_torch.utils.shuffle import dinucleotide_shuffle
+
+    wrappers = {"K1": stem_fixed_point, "K2": la.la_log_factored, "K3": la.la_exp_factored,
+                "K4": la.la_exp, "K5": la.la_log}
+
+    def reset_counts() -> None:
+        for w in wrappers.values():
+            w.launches = 0
+
+    def counts() -> dict[str, int]:
+        return {k: w.launches for k, w in wrappers.items()}
 
     # ---- 1. environment ----
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -125,6 +245,10 @@ def main() -> int:
     pos, tpos = fam[:N_TRAIN], fam[N_TRAIN:]
     neg, tneg = shuf[:N_TRAIN], shuf[N_TRAIN:]
     train = pos + neg
+    prot = make_proteins(rng, N_TRAIN + N_TEST)
+    prot_shuf = ["".join(rng.permutation(list(s))) for s in prot]
+    ppos, tppos = prot[:N_TRAIN], prot[N_TRAIN:]
+    pneg, tpneg = prot_shuf[:N_TRAIN], prot_shuf[N_TRAIN:]
 
     # ---- 3. kernel parity at the main path's shapes ----
     # the largest node bucket against itself (square), and against the
@@ -145,6 +269,7 @@ def main() -> int:
         cases.append((fixed_point_operands(x, y, co, iters=iters, len_band=cfg.len_band),
                       iters))
     max_abs = 0.0
+    k1_rel = 0.0
     for case_args, case_iters in cases:
         got = stem_fixed_point(*case_args, max_iters=case_iters)
         want = stem_fixed_point_reference(*case_args, max_iters=case_iters)
@@ -153,6 +278,7 @@ def main() -> int:
         err = (got - want).abs()
         rel = float((err / (want.abs() + 1e-6 * want.abs().max())).max())
         max_abs = max(max_abs, float(err.max()))
+        k1_rel = max(k1_rel, rel)
         _, nx, ny = case_args[0].shape
         print(f"K1 parity: B=256 Nx={nx} Ny={ny} max_iters={case_iters} trip counts "
               f"{int(case_args[-1].min())}..{int(case_args[-1].max())}: max abs "
@@ -161,38 +287,40 @@ def main() -> int:
     args, iters = cases[0]
     n_nodes = args[0].shape[1]
 
-    # ---- 4. main path ----
-    with tempfile.TemporaryDirectory() as tmp:
-        p = lambda f: os.path.join(tmp, f)  # noqa: E731
-        write_fasta(p("pos.fa"), pos, "p")
-        write_fasta(p("neg.fa"), neg, "n")
-        write_fasta(p("tpos.fa"), tpos, "tp")
-        write_fasta(p("tneg.fa"), tneg, "tn")
-        stem_fixed_point.launches = 0
-        t0 = time.perf_counter()
-        stem_kernel_lite.main(["--device", "cuda", "-n", p("km.dat"),
-                               "+1", p("pos.fa"), "-1", p("neg.fa")])
-        train_s = time.perf_counter() - t0
-        train_launches = stem_fixed_point.launches
-        svm_tools.train_main([p("km.dat"), p("km.model")])
-        t0 = time.perf_counter()
-        stem_kernel_lite.main(["--device", "cuda", "-n", p("test.dat"),
-                               "--model", p("km.model"), "--predict", p("pred.txt"),
-                               "+1", p("pos.fa"), "-1", p("neg.fa"),
-                               "--test", "+1", p("tpos.fa"), "-1", p("tneg.fa")])
-        predict_s = time.perf_counter() - t0
-        launches = stem_fixed_point.launches
-        labels, g = read_precomputed(p("km.dat"))
-        pred_lines = open(p("pred.txt")).read().splitlines()
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    p = lambda f: os.path.join(tmp, f)  # noqa: E731
+    write_fasta(p("pos.fa"), pos, "p")
+    write_fasta(p("neg.fa"), neg, "n")
+    write_fasta(p("tpos.fa"), tpos, "tp")
+    write_fasta(p("tneg.fa"), tneg, "tn")
+    write_fasta(p("spos.fa"), pos[:4], "p")
+    write_fasta(p("sneg.fa"), neg[:4], "n")
 
-        # small-input reference: the same flow on the plain versions (CPU)
-        write_fasta(p("spos.fa"), pos[:4], "p")
-        write_fasta(p("sneg.fa"), neg[:4], "n")
-        for d in ("cuda", "cpu"):
-            stem_kernel_lite.main(["--device", d, "-n", p(f"small_{d}.dat"),
-                                   "+1", p("spos.fa"), "-1", p("sneg.fa")])
-        _, g_cuda = read_precomputed(p("small_cuda.dat"))
-        _, g_cpu = read_precomputed(p("small_cpu.dat"))
+    # ---- 4. stem path ----
+    reset_counts()
+    t0 = time.perf_counter()
+    stem_kernel_lite.main(["--device", "cuda", "-n", p("km.dat"),
+                           "+1", p("pos.fa"), "-1", p("neg.fa")])
+    train_s = time.perf_counter() - t0
+    train_launches = stem_fixed_point.launches
+    svm_tools.train_main([p("km.dat"), p("km.model")])
+    t0 = time.perf_counter()
+    stem_kernel_lite.main(["--device", "cuda", "-n", p("test.dat"),
+                           "--model", p("km.model"), "--predict", p("pred.txt"),
+                           "+1", p("pos.fa"), "-1", p("neg.fa"),
+                           "--test", "+1", p("tpos.fa"), "-1", p("tneg.fa")])
+    predict_s = time.perf_counter() - t0
+    stem_counts = counts()
+    launches = stem_counts["K1"]
+    labels, g = read_precomputed(p("km.dat"))
+
+    # small-input reference: the same flow on the plain versions (CPU)
+    for d in ("cuda", "cpu"):
+        stem_kernel_lite.main(["--device", d, "-n", p(f"small_{d}.dat"),
+                               "+1", p("spos.fa"), "-1", p("sneg.fa")])
+    _, g_cuda = read_precomputed(p("small_cuda.dat"))
+    _, g_cpu = read_precomputed(p("small_cpu.dat"))
     # the fold's f32 scaled engine on the card against the CPU (denormals:
     # the log-table floor TINY = 1e-38 lies below the smallest normal f32)
     small = pos[:4] + neg[:4]
@@ -201,35 +329,22 @@ def main() -> int:
         fold_sequences(small, cfg.bp_opts, device="cpu")))
 
     n = 2 * N_TRAIN
-    print(f"main path: train Gram {g.shape}, {n * (n + 1) // 2} pairs, K1 launches "
-          f"{train_launches} (train) {launches} (train + predict)")
-    check(launches > 0 and train_launches > 0, "the main path never launched K1")
-    check(g.shape == (n, n) and labels == ["+1"] * N_TRAIN + ["-1"] * N_TRAIN,
-          f"Gram shape {g.shape}")
-    check(bool(np.isfinite(g).all()), "Gram not finite")
-    check(float(np.abs(g - g.T).max()) <= 1e-6, "Gram not symmetric")
-    check(float(np.abs(np.diag(g) - 1.0).max()) <= 1e-5, "Gram diagonal is not 1")
-    check(len(pred_lines) == 2 * N_TEST, f"{len(pred_lines)} prediction lines")
-    y_true = np.array([1.0 if ln.split()[0] == "+1" else -1.0 for ln in pred_lines])
-    dec = np.array([float(ln.split()[1]) for ln in pred_lines])
-    check(bool(np.isfinite(dec).all()), "decision values not finite")
-    auc, _ = roc_curve_and_auc(y_true, dec)
+    train_labels = ["+1"] * N_TRAIN + ["-1"] * N_TRAIN
+    print(f"stem path: train Gram {g.shape}, {n * (n + 1) // 2} pairs, K1 launches "
+          f"{train_launches} (train) {launches} (train + predict); all counts {stem_counts}")
+    check(launches > 0 and train_launches > 0, "the stem path never launched K1")
+    gram_checks("stem", g, n, labels, train_labels)
+    auc = predictions(p("pred.txt"), 2 * N_TEST, "stem")
     small_diff = float(np.abs(g_cuda - g_cpu).max())
-    print(f"predict: {len(pred_lines)} rows, AUC {auc:.4f}; small-input cuda vs cpu: "
+    print(f"predict: {2 * N_TEST} rows, AUC {auc:.4f}; small-input cuda vs cpu: "
           f"Gram max abs diff {small_diff:.3e} (band {CLI_BAND}), BPP max abs diff "
           f"{bpp_diff:.3e} (band {BPP_BAND})")
     check(small_diff <= CLI_BAND, "cuda and cpu Grams disagree on the small input")
     check(bpp_diff <= BPP_BAND, "cuda and cpu folds disagree on the small input")
 
     # ---- 5. times ----
-    for _ in range(2):
-        stem_fixed_point(*args, max_iters=iters)
-        stem_fixed_point_reference(*args, max_iters=iters)
-    plain_a = cuda_ms(lambda: stem_fixed_point_reference(*args, max_iters=iters), 5)
-    kern_a = cuda_ms(lambda: stem_fixed_point(*args, max_iters=iters), 5)
-    kern_b = cuda_ms(lambda: stem_fixed_point(*args, max_iters=iters), 5)
-    plain_b = cuda_ms(lambda: stem_fixed_point_reference(*args, max_iters=iters), 5)
-    k_ms, p_ms = (kern_a + kern_b) / 2, (plain_a + plain_b) / 2
+    k_ms, p_ms = timed_pair(lambda: stem_fixed_point(*args, max_iters=iters),
+                            lambda: stem_fixed_point_reference(*args, max_iters=iters), 5)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fold_sequences(train, cfg.bp_opts, device=dev)
@@ -245,13 +360,247 @@ def main() -> int:
           f"(B=256 N={n_nodes} max_iters={iters}); fold {len(train) / fold_s:.1f} seqs/s; "
           f"Gram {n_pairs / gram_s:.1f} pairs/s ({gram_s:.2f} s); train flow {train_s:.2f} s; "
           f"predict flow {2 * N_TEST / predict_s:.2f} rows/s ({predict_s:.2f} s)")
+    report = {"K1": {"max_abs_err": max_abs, "max_rel_err": k1_rel, "ms": k_ms, "plain_ms": p_ms,
+                     "launches": launches}}
 
-    print(json.dumps({"kernels": [{
-        "name": "stem_fixed_point", "route": "cuda",
-        "source": "stem_kernel_torch/csrc/stem_fixed_point.cu",
-        "replaces": "stem_kernel_tpu/ops/pallas_stem.py:119",
-        "launches": launches, "max_abs_err": max_abs, "ms": k_ms, "plain_ms": p_ms,
-    }]}))
+    # ---- 6. LA parity (K2-K5) at the paths' shapes ----
+    alpha, beta, gap, ext = BPLA
+    kern = BPLAKernel().to(dev)
+    t0 = time.perf_counter()
+    rna_feats = bpla_features([Alignment(rows=[s]) for s in train],
+                              bpp_for_alignments([Alignment(rows=[s]) for s in train], device=dev))
+    torch.cuda.synchronize()
+    bpla_featurize_s = time.perf_counter() - t0
+    short = trim(rng, tpos + tneg, 60, 100)
+    short_feats = bpla_features([Alignment(rows=[s]) for s in short],
+                                bpp_for_alignments([Alignment(rows=[s]) for s in short],
+                                                   device=dev))
+    prof_feats = random_profiles(rng, n, 32, 64)
+    prof_short = random_profiles(rng, 64, 32, 48)
+    aa_train = aa_features([Alignment(rows=[s]) for s in ppos + pneg])
+    aa_short = aa_features([Alignment(rows=[s]) for s in trim(rng, tppos + tpneg, 30, 56)])
+    blosum = torch.as_tensor(BLOSUM62, device=dev)
+    bidx = lambda m: rng.integers(0, m, LA_BATCH)  # noqa: E731
+
+    def batch(fx, fy):
+        """(x, y) feature batches of LA_BATCH random pairs."""
+        return (pick(fx, bidx(len(fx["length"])), dev),
+                pick(fy, bidx(len(fy["length"])), dev))
+
+    rna_sq, rna_rect = batch(rna_feats, rna_feats), batch(rna_feats, short_feats)
+    prof_sq, prof_rect = batch(prof_feats, prof_feats), batch(prof_feats, prof_short)
+    aa_sq, aa_rect = batch(aa_train, aa_train), batch(aa_train, aa_short)
+    big = random_profiles(rng, LA_BATCH, 400, 400)
+    big = pick(big, np.arange(LA_BATCH), dev)
+
+    def factored(xy):
+        x, y = xy
+        return [kern.factors(x, "x"), kern.factors(y, "y"), x["length"], y["length"]]
+
+    def protein(xy):
+        x, y = xy
+        return [la_score_matrix(x["profile"], y["profile"], blosum), x["length"], y["length"]]
+
+    def affine(xy):
+        x, y = xy
+        return [*kern.score_parts(x, y), x["length"], y["length"]]
+
+    fac = lambda fn: lambda fx, fy, lx, ly: fn(fx, fy, lx, ly, *BPLA)  # noqa: E731
+    mat = lambda fn: lambda s, lx, ly: fn(s, lx, ly, *PROT)  # noqa: E731
+    aff_exp = lambda wp, wu, lx, ly: la.la_exp_affine_auto(wp, wu, lx, ly, *BPLA)  # noqa: E731
+    aff_log = lambda wp, wu, lx, ly: la.la_log_affine_auto(wp, wu, lx, ly, *BPLA)  # noqa: E731
+
+    def aff_plain(fn):
+        return lambda wp, wu, lx, ly: fn(wp, lx, ly, beta, gap, ext, scores2=wu, alpha=alpha)
+
+    la_cases = [  # (kernel, label, kernel call, plain call, operands)
+        ("K2", "corpus factors", fac(la.la_log_factored), fac(la.la_log_factored_reference),
+         factored(rna_sq)),
+        ("K2", "corpus x trimmed", fac(la.la_log_factored), fac(la.la_log_factored_reference),
+         factored(rna_rect)),
+        ("K2", "random factors L=400", fac(la.la_log_factored),
+         fac(la.la_log_factored_reference), factored((big, big))),
+        ("K3", "random profiles", fac(la.la_exp_factored), fac(la.la_exp_factored_reference),
+         factored(prof_sq)),
+        ("K3", "random profiles rect", fac(la.la_exp_factored),
+         fac(la.la_exp_factored_reference), factored(prof_rect)),
+        ("K4", "BLOSUM62 proteins", mat(la.la_exp_auto), mat(la.la_exp_reference),
+         protein(aa_sq)),
+        ("K4", "BLOSUM62 proteins rect", mat(la.la_exp_auto), mat(la.la_exp_reference),
+         protein(aa_rect)),
+        ("K4", "affine, random profiles", aff_exp, aff_plain(la.la_exp_reference),
+         affine(prof_rect)),
+        ("K5", "BLOSUM62 proteins", mat(la.la_log_auto), mat(la.la_log_reference),
+         protein(aa_sq)),
+        ("K5", "BLOSUM62 proteins rect", mat(la.la_log_auto), mat(la.la_log_reference),
+         protein(aa_rect)),
+        ("K5", "affine, corpus", aff_log, aff_plain(la.la_log_reference), affine(rna_sq)),
+        ("K5", "affine, corpus x trimmed", aff_log, aff_plain(la.la_log_reference),
+         affine(rna_rect)),
+    ]
+    for key, label, kernel_fn, plain_fn, ops in la_cases:
+        log = key in ("K2", "K5")
+        got = kernel_fn(*ops)
+        want = plain_fn(*ops)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(want).all()), f"{key} {label}: plain version not finite")
+        check(bool(torch.isfinite(got).all()), f"{key} {label}: kernel output not finite")
+        err = (got - want).abs()
+        rel = float((err / want.abs()).max())
+        metric, limit = (float(err.max()), LA_LOG_ATOL) if log else (rel, LA_EXP_RTOL)
+        first3 = [o[:3].contiguous() for o in ops]
+        alone = kernel_fn(*first3)
+        same = bool(torch.equal(alone, got[:3]))
+        print(f"{key} parity, {label}: {dims(key, ops)}: max abs "
+              f"{float(err.max()):.3e} max rel {rel:.3e} "
+              f"({'abs' if log else 'rel'} limit {limit}); first 3 alone bit-identical {same}")
+        check(metric <= limit, f"{key} {label}: kernel disagrees with its plain version")
+        check(same, f"{key} {label}: a pair's value depends on its batch")
+        r = report.setdefault(key, {"max_abs_err": 0.0, "max_rel_err": 0.0})
+        r["max_abs_err"] = max(r["max_abs_err"], float(err.max()))
+        r["max_rel_err"] = max(r["max_rel_err"], rel)
+
+    # ---- 7. BPLA path ----
+    reset_counts()
+    t0 = time.perf_counter()
+    bpla_kernel.main(["--device", "cuda", "-n", p("bpla.dat"),
+                      "+1", p("pos.fa"), "-1", p("neg.fa")])
+    bpla_train_s = time.perf_counter() - t0
+    bpla_train_launches = la.la_log_factored.launches
+    svm_tools.train_main([p("bpla.dat"), p("bpla.model")])
+    t0 = time.perf_counter()
+    bpla_kernel.main(["--device", "cuda", "-n", p("bpla_test.dat"),
+                      "--model", p("bpla.model"), "--predict", p("bpla_pred.txt"),
+                      "+1", p("pos.fa"), "-1", p("neg.fa"),
+                      "--test", "+1", p("tpos.fa"), "-1", p("tneg.fa")])
+    bpla_predict_s = time.perf_counter() - t0
+    bpla_counts = counts()
+    report["K2"]["launches"] = bpla_counts["K2"]
+    labels, g_bpla = read_precomputed(p("bpla.dat"))
+    print(f"BPLA path: train Gram {g_bpla.shape}, K2 launches {bpla_train_launches} (train) "
+          f"{bpla_counts['K2']} (train + predict); all counts {bpla_counts}")
+    check(bpla_train_launches > 0 and bpla_counts["K2"] > bpla_train_launches,
+          "the BPLA path did not launch K2 in train and predict")
+    gram_checks("bpla_kernel", g_bpla, n, labels, train_labels)
+    bpla_auc = predictions(p("bpla_pred.txt"), 2 * N_TEST, "bpla_kernel")
+    for d in ("cuda", "cpu"):
+        bpla_kernel.main(["--device", d, "-n", p(f"bpla_small_{d}.dat"),
+                          "+1", p("spos.fa"), "-1", p("sneg.fa")])
+    bpla_small = float(np.abs(read_precomputed(p("bpla_small_cuda.dat"))[1]
+                              - read_precomputed(p("bpla_small_cpu.dat"))[1]).max())
+    print(f"BPLA predict: {2 * N_TEST} rows, AUC {bpla_auc:.4f}; 8 sequences cuda vs cpu: "
+          f"Gram max abs diff {bpla_small:.3e} (band {BPLA_BAND})")
+    check(bpla_small <= BPLA_BAND, "bpla_kernel: cuda and cpu Grams disagree")
+
+    # ---- 8. LA path ----
+    write_fasta(p("ppos.fa"), ppos, "p")
+    write_fasta(p("pneg.fa"), pneg, "n")
+    write_fasta(p("tppos.fa"), tppos, "tp")
+    write_fasta(p("tpneg.fa"), tpneg, "tn")
+    write_fasta(p("sppos.fa"), ppos[:4], "p")
+    write_fasta(p("spneg.fa"), pneg[:4], "n")
+    reset_counts()
+    t0 = time.perf_counter()
+    la_kernel.main(["--device", "cuda", "-n", p("la.dat"),
+                    "+1", p("ppos.fa"), "-1", p("pneg.fa")])
+    la_train_s = time.perf_counter() - t0
+    la_train_launches = la.la_exp.launches
+    svm_tools.train_main([p("la.dat"), p("la.model")])
+    la_kernel.main(["--device", "cuda", "-n", p("la_test.dat"),
+                    "--model", p("la.model"), "--predict", p("la_pred.txt"),
+                    "+1", p("ppos.fa"), "-1", p("pneg.fa"),
+                    "--test", "+1", p("tppos.fa"), "-1", p("tpneg.fa")])
+    la_counts = counts()
+    report["K4"]["launches"] = la_counts["K4"]
+    labels, g_la = read_precomputed(p("la.dat"))
+    print(f"LA path: train Gram {g_la.shape}, K4 launches {la_train_launches} (train) "
+          f"{la_counts['K4']} (train + predict); all counts {la_counts}")
+    check(la_train_launches > 0 and la_counts["K4"] > la_train_launches,
+          "the LA path did not launch K4 in train and predict")
+    gram_checks("la_kernel", g_la, n, labels, train_labels)
+    la_auc = predictions(p("la_pred.txt"), 2 * N_TEST, "la_kernel")
+    for d in ("cuda", "cpu"):
+        la_kernel.main(["--device", d, "-n", p(f"la_small_{d}.dat"),
+                        "+1", p("sppos.fa"), "-1", p("spneg.fa")])
+    la_small = float(np.abs(read_precomputed(p("la_small_cuda.dat"))[1]
+                            - read_precomputed(p("la_small_cpu.dat"))[1]).max())
+    print(f"LA predict: {2 * N_TEST} rows, AUC {la_auc:.4f}; 8 proteins cuda vs cpu: "
+          f"Gram max abs diff {la_small:.3e} (band {BPLA_BAND})")
+    check(la_small <= BPLA_BAND, "la_kernel: cuda and cpu Grams disagree")
+    tmp_dir.cleanup()
+
+    # ---- 9. flagship forward: the exp BPLA Gram through the model class ----
+    reset_counts()
+    g_fwd = PairKernelEngine(BPLAKernel().to(dev), prof_feats, device=dev,
+                             batch_size=LA_BATCH).gram(normalize=True)
+    fwd_counts = counts()
+    report["K3"]["launches"] = fwd_counts["K3"]
+    print(f"flagship forward: exp Gram {g_fwd.shape} of random-profile examples "
+          f"(L 32-64); all counts {fwd_counts}")
+    check(fwd_counts["K3"] > 0, "the flagship forward never launched K3")
+    gram_checks("flagship forward", g_fwd, n)
+
+    # ---- 10. log protein Gram: BLOSUM62 has rank 22, so K5 ----
+    prot_kernel = BPLAKernel(BLOSUM62, no_bp=True, gap=PROT[1], ext=PROT[2], beta=PROT[0])
+    reset_counts()
+    g_log = PairKernelEngine(prot_kernel.to(dev).log_value, aa_train, device=dev,
+                             batch_size=LA_BATCH, log_values=True).gram(normalize=True)
+    log_counts = counts()
+    report["K5"]["launches"] = log_counts["K5"]
+    log_vs_exp = float(np.abs(g_log - g_la).max())
+    print(f"log protein Gram: {g_log.shape}; all counts {log_counts}; against the LA "
+          f"path's exp Gram: max abs diff {log_vs_exp:.3e} (band {BPLA_BAND})")
+    check(log_counts["K5"] > 0, "the log protein Gram never launched K5")
+    gram_checks("log protein", g_log, n)
+    check(log_vs_exp <= BPLA_BAND, "the log (K5) and exp (K4) protein Grams disagree")
+
+    # ---- 11. times ----
+    timing = {
+        "K2": (fac(la.la_log_factored), fac(la.la_log_factored_reference), factored(rna_sq)),
+        "K3": (fac(la.la_exp_factored), fac(la.la_exp_factored_reference), factored(prof_sq)),
+        "K4": (mat(la.la_exp), mat(la.la_exp_reference), protein(aa_sq)),
+        "K5": (mat(la.la_log), mat(la.la_log_reference), protein(aa_sq)),
+    }
+    for key, (kernel_fn, plain_fn, ops) in timing.items():
+        ms, plain_ms = timed_pair(lambda: kernel_fn(*ops), lambda: plain_fn(*ops), 5)
+        report[key].update(ms=ms, plain_ms=plain_ms)
+        print(f"times on {smi}: {key} {ms:.4f} ms vs plain {plain_ms:.3f} ms "
+              f"({dims(key, ops)})")
+    rates = {}
+    for label, fn, feats, log_values in (
+            ("bpla_kernel", kern.log_value, rna_feats, True),
+            ("la_kernel", lambda x, y: la.la_exp_auto(*protein((x, y)), *PROT), aa_train, False)):
+        eng = PairKernelEngine(fn, feats, device=dev, batch_size=LA_BATCH, log_values=log_values)
+        eng.gram(normalize=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.gram(normalize=True)
+        torch.cuda.synchronize()
+        rates[label] = n_pairs / (time.perf_counter() - t0)
+    print(f"times on {smi}: bpla_kernel Gram {rates['bpla_kernel']:.1f} pairs/s, "
+          f"la_kernel Gram {rates['la_kernel']:.1f} pairs/s ({n_pairs} pairs each); "
+          f"bpla_kernel train flow {bpla_train_s:.2f} s (fold + features "
+          f"{bpla_featurize_s:.2f} s), predict flow {2 * N_TEST / bpla_predict_s:.2f} rows/s; "
+          f"la_kernel train flow {la_train_s:.2f} s")
+
+    meta = {
+        "K1": ("stem_fixed_point", "stem_kernel_torch/csrc/stem_fixed_point.cu",
+               "stem_kernel_tpu/ops/pallas_stem.py:119"),
+        "K2": ("la_log_factored", "stem_kernel_torch/csrc/la_dp.cu",
+               "stem_kernel_tpu/ops/pallas_la.py:604"),
+        "K3": ("la_exp_factored", "stem_kernel_torch/csrc/la_dp.cu",
+               "stem_kernel_tpu/ops/pallas_la.py:563"),
+        "K4": ("la_exp", "stem_kernel_torch/csrc/la_dp.cu",
+               "stem_kernel_tpu/ops/pallas_la.py:137"),
+        "K5": ("la_log", "stem_kernel_torch/csrc/la_dp.cu",
+               "stem_kernel_tpu/ops/pallas_la.py:281"),
+    }
+    print(json.dumps({"kernels": [
+        {"name": nm, "route": "cuda", "source": src, "replaces": rep,
+         "launches": report[k]["launches"], "max_abs_err": report[k]["max_abs_err"],
+         "max_rel_err": report[k]["max_rel_err"], "ms": report[k]["ms"],
+         "plain_ms": report[k]["plain_ms"]}
+        for k, (nm, src, rep) in meta.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

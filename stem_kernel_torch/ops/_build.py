@@ -1,8 +1,9 @@
 """Build and load the port's CUDA library from ``stem_kernel_torch/csrc``.
 
-Every ``csrc/*.cu`` is compiled by nvcc for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ctypes.  The library goes to
-``build/stem_kernel_torch/`` at the root of the checkout (listed in
+Every ``csrc/*.cu`` is compiled by nvcc for ``sm_90a``, one nvcc process
+per source, all started together, and the objects are linked into one
+shared library with a plain C interface, loaded with ctypes.  The library
+goes to ``build/stem_kernel_torch/`` at the root of the checkout (listed in
 ``.gitignore``).  It is built at its first use in a process, and built
 again when any source is newer than it.  Nothing here runs at import.
 """
@@ -22,10 +23,9 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "stem_kernel_torch"
 LIB_NAME = "libstem_kernel_torch.so"
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# no --use_fast_math / -ftz: the kernels keep subnormals, as torch does on the CPU
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 
 def find_nvcc() -> str:
@@ -59,22 +59,27 @@ def build() -> tuple[Path, float]:
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    # compile to a private name, then rename: a concurrent build never
+    # build in a private directory, then rename: a concurrent build never
     # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, srcs)],
-            capture_output=True, text=True, check=False,
-        )
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{s.stem}.o") for s in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", o],
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for s, o in zip(srcs, objs)]
+        failed = []
+        for s, proc in zip(srcs, procs):
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{s.name} ({proc.returncode}):\n{out}\n{err}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp_lib = os.path.join(tmp, LIB_NAME)
+        proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp_lib, *objs],
+                              capture_output=True, text=True, check=False)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+                f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp_lib, lib)
     return lib, time.perf_counter() - t0
 
 
@@ -83,8 +88,15 @@ def load_library() -> ctypes.CDLL:
     """The built library with argtypes declared for every entry point."""
     path, _ = build()
     lib = ctypes.CDLL(str(path))
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.stem_fixed_point_f32
     fn.argtypes = [p] * 9 + [i, i, i, i] + [p] * 4 + [p]
     fn.restype = ctypes.c_int
+    # (p0, p1, lx, ly, batch, max_lx, max_ly[, rank], alpha, beta, bg, be,
+    #  log bg, log be, out, stream)
+    for name, n_int in (("la_log_factored_f32", 4), ("la_exp_factored_f32", 4),
+                        ("la_exp_f32", 3), ("la_log_f32", 3)):
+        fn = getattr(lib, name)
+        fn.argtypes = [p] * 4 + [i] * n_int + [f] * 6 + [p, p]
+        fn.restype = ctypes.c_int
     return lib

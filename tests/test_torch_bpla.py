@@ -1,0 +1,325 @@
+"""Port parity: the BPLA / LA family against the JAX package.
+
+The same numpy inputs go through the JAX package (the reference; its Pallas
+kernels in interpret mode, as tests/test_bpla.py runs them) and the PyTorch
+port, which runs its plain torch versions here (CPU tensors).  Tolerances are
+those tests/test_bpla.py holds the same functions to, or tighter.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from stem_kernel_tpu.io.profile import Alignment as JAlignment
+from stem_kernel_tpu.models import bpla as jb
+from stem_kernel_tpu.models.featurize import bpla_features as j_bpla_features
+from stem_kernel_tpu.ops import pallas_la as jp
+from stem_kernel_tpu.ops import recurrence as jr
+from stem_kernel_torch.convert import bpla_kernel_from_numpy
+from stem_kernel_torch.gram.engine import PairKernelEngine
+from stem_kernel_torch.io.profile import Alignment
+from stem_kernel_torch.models import bpla as tb
+from stem_kernel_torch.models.blosum_data import BLOSUM62
+from stem_kernel_torch.models.featurize import bpla_features
+from stem_kernel_torch.ops import la as tl
+from stem_kernel_torch.ops import recurrence as tr
+
+PARAMS = (0.11, -8.0, -0.75)  # beta, gap, ext
+ALPHA = 4.5
+
+
+def _t(*arrays):
+    return [torch.as_tensor(a) for a in arrays]
+
+
+def _j(*arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+def _profiles(rng, b, n, k=4, empty=None):
+    p = rng.uniform(size=(b, n, k)).astype(np.float32)
+    p /= p.sum(-1, keepdims=True)
+    if empty is not None:
+        p[empty] = 0.0  # an all-gap column: the LAScore 0.0 fallback
+    return p
+
+
+def _features(rng, b, n, lengths):
+    prof = _profiles(rng, b, n, empty=(0, 4))
+    pl = rng.uniform(0, 0.7, (b, n)).astype(np.float32)
+    pr = rng.uniform(0, 0.7, (b, n)).astype(np.float32)
+    pu = np.sqrt(np.clip(1.0 - pl**2 - pr**2, 0, None)).astype(np.float32)
+    return {"profile": prof, "p_left": pl, "p_right": pr, "p_unpair": pu,
+            "length": np.asarray(lengths, np.int32)}
+
+
+def test_la_score_matrix_and_parts_match_jax():
+    rng = np.random.default_rng(3)
+    x = _features(rng, 3, 11, [11, 7, 2])
+    y = _features(rng, 3, 9, [9, 9, 4])
+    table = rng.normal(size=(4, 4)).astype(np.float32)
+    want = np.asarray(jb.la_score_matrix(*_j(x["profile"], y["profile"], table)))
+    got = tb.la_score_matrix(*_t(x["profile"], y["profile"], table)).numpy()
+    assert got[0, 4].tolist() == [0.0] * 9  # the empty column
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    keys = ("profile", "p_left", "p_right", "p_unpair")
+    args = [x[k] for k in keys] + [y[k] for k in keys] + [table]
+    j_wp, j_wu = jb.bpla_score_parts(*_j(*args))
+    t_wp, t_wu = tb.bpla_score_parts(*_t(*args))
+    np.testing.assert_allclose(t_wp.numpy(), np.asarray(j_wp), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(t_wu.numpy(), np.asarray(j_wu), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("side", ["x", "y"])
+def test_bpla_factors_match_jax(side):
+    rng = np.random.default_rng(4)
+    d = _features(rng, 3, 11, [11, 5, 1])
+    table = rng.normal(size=(4, 4)).astype(np.float32)
+    args = [d[k] for k in ("profile", "p_left", "p_right", "p_unpair")] + [table]
+    want = np.asarray(jb.bpla_factors(*_j(*args), side=side))
+    got = tb.bpla_factors(*_t(*args), side=side).numpy()
+    assert got.shape == (3, 11, 6)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(got[0, 4, 2:], 0.0)  # empty column
+
+
+def test_bpla_profiles_and_features_match_jax():
+    rng = np.random.default_rng(5)
+    seqs = ["gggaaaccc", "gcgcaaagcgcuu", "acgu-acguaacg"]
+    bpps = []
+    for s in seqs:
+        n = len(s)
+        bpps.append(np.triu(rng.uniform(0, 2.0 / n, (n, n)), 1))
+    for bpp in bpps:
+        for a, b in zip(tb.bpla_profiles(bpp), jb.bpla_profiles(bpp)):
+            np.testing.assert_array_equal(a, b)
+    got = bpla_features([Alignment(rows=[s]) for s in seqs], bpps)
+    want = j_bpla_features([JAlignment(rows=[s]) for s in seqs], bpps)
+    assert got.keys() == want.keys()
+    for k in got:
+        assert got[k].dtype == want[k].dtype
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("kind", ["logsumexp", "maxplus"])
+def test_recurrences_match_jax(kind, reverse):
+    rng = np.random.default_rng(6)
+    b = rng.normal(scale=3.0, size=(3, 2, 70)).astype(np.float32)
+    b[0, 0, 10:20] = tb.NEG_LARGE
+    a = -0.0825 if kind == "logsumexp" else -0.75
+    want = np.asarray(getattr(jr, f"{kind}_recurrence")(a, jnp.asarray(b), reverse=reverse))
+    got = getattr(tr, f"{kind}_recurrence")(a, torch.as_tensor(b), reverse=reverse).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _ragged_scores(rng, b=5, lx=9, ly=7, lo=-3.0, hi=4.0):
+    s = rng.uniform(lo, hi, (b, lx, ly)).astype(np.float32)
+    return s, np.array([9, 6, 3, 9, 1], np.int32)[:b], np.array([7, 7, 2, 5, 1], np.int32)[:b]
+
+
+@pytest.mark.parametrize("kind", ["exp", "log", "max"])
+def test_scans_match_jax(kind):
+    rng = np.random.default_rng(7)
+    s, lx, ly = _ragged_scores(rng)
+    mask = np.asarray(jb.pair_mask(*_j(lx), 9, *_j(ly), 7))
+    assert np.array_equal(tb.pair_mask(*_t(lx), 9, *_t(ly), 7).numpy(), mask)
+    if kind == "max":
+        want = np.asarray(jb.local_alignment_max(*_j(s, mask), *PARAMS[1:]))
+        got = tb.local_alignment_max(*_t(s, mask), *PARAMS[1:]).numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+        return
+    fn = f"local_alignment_{kind}"
+    want = np.asarray(getattr(jb, fn)(*_j(s, mask), *PARAMS))
+    got = getattr(tb, fn)(*_t(s, mask), *PARAMS).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+def _case_materialised(kind, two):
+    """(port plain value, JAX interpret value, rtol) for K4/K5."""
+    rng = np.random.default_rng(8)
+    if kind == "long":  # exp space overflows here; the log closure stays finite
+        s = np.full((2, 160, 160), 15.0, np.float32)
+        lx, ly = np.array([160, 120], np.int32), np.array([160, 160], np.int32)
+        want = jp.la_log_pallas(*_j(s, lx, ly), *PARAMS, block_b=8, interpret=True)
+        got = tl.la_log_reference(*_t(s, lx, ly), *PARAMS)
+        return got, want, 1e-4
+    s, lx, ly = _ragged_scores(rng, lo=-3.0, hi=2.0 if kind == "exp" else 4.0)
+    kw_j, kw_t = {}, {}
+    if two:
+        s = rng.uniform(0.0, 1.0, s.shape).astype(np.float32)
+        s2 = rng.uniform(-2.0, 2.0, s.shape).astype(np.float32)
+        kw_j = {"scores2": jnp.asarray(s2), "alpha": ALPHA}
+        kw_t = {"scores2": torch.as_tensor(s2), "alpha": ALPHA}
+    jfn = jp.la_exp_pallas if kind == "exp" else jp.la_log_pallas
+    tfn = tl.la_exp_reference if kind == "exp" else tl.la_log_reference
+    want = jfn(*_j(s, lx, ly), *PARAMS, block_b=8, interpret=True, **kw_j)
+    return tfn(*_t(s, lx, ly), *PARAMS, **kw_t), want, 2e-4 if two else 1e-4
+
+
+def _case_factored(kind):
+    """(port plain value, JAX interpret value, rtol) for K2/K3, Lx != Ly."""
+    rng = np.random.default_rng(7)
+    fx = (rng.normal(size=(5, 21, 6)) * 0.4).astype(np.float32)
+    fy = (rng.normal(size=(5, 17, 6)) * 0.4).astype(np.float32)
+    lx = np.array([21, 13, 3, 21, 1], np.int32)
+    ly = np.array([17, 17, 2, 9, 1], np.int32)
+    jfn = jp.la_exp_factored if kind == "exp" else jp.la_log_factored
+    tfn = tl.la_exp_factored_reference if kind == "exp" else tl.la_log_factored_reference
+    want = jfn(*_j(fx, fy, lx, ly), ALPHA, *PARAMS, block_b=8, interpret=True)
+    return tfn(*_t(fx, fy, lx, ly), ALPHA, *PARAMS), want, 1e-4
+
+
+@pytest.mark.parametrize("case", ["K2 log factored", "K3 exp factored", "K4 exp",
+                                  "K4 exp affine", "K5 log", "K5 log affine",
+                                  "K5 log long"])
+def test_plain_versions_match_pallas_interpret(case):
+    """Each kernel's plain version against its Pallas function (interpret)."""
+    kind = "exp" if " exp" in case else "log"
+    if "factored" in case:
+        got, want, rtol = _case_factored(kind)
+    else:
+        got, want, rtol = _case_materialised("long" if "long" in case else kind,
+                                             "affine" in case)
+    got, want = got.numpy(), np.asarray(want)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=rtol)
+
+
+def test_dispatchers_take_the_plain_versions_on_cpu():
+    rng = np.random.default_rng(9)
+    s, lx, ly = _ragged_scores(rng, lo=-3.0, hi=2.0)
+    s2 = rng.uniform(-1.0, 1.0, s.shape).astype(np.float32)
+    args = _t(s, lx, ly)
+    before = [w.launches for w in (tl.la_exp, tl.la_log)]
+    np.testing.assert_array_equal(tl.la_exp_auto(*args, *PARAMS).numpy(),
+                                  tl.la_exp_reference(*args, *PARAMS).numpy())
+    np.testing.assert_array_equal(tl.la_log_auto(*args, *PARAMS).numpy(),
+                                  tl.la_log_reference(*args, *PARAMS).numpy())
+    aff = tl.la_log_affine_auto(args[0], torch.as_tensor(s2), args[1], args[2], ALPHA, *PARAMS)
+    want = tl.la_log_reference(*args, *PARAMS, scores2=torch.as_tensor(s2), alpha=ALPHA)
+    np.testing.assert_array_equal(aff.numpy(), want.numpy())
+    assert [w.launches for w in (tl.la_exp, tl.la_log)] == before  # no kernel on the CPU
+
+
+@pytest.mark.parametrize("bad", ["int64 lengths", "rank 7", "rank 1", "strided",
+                                 "Ly too long", "scores2 shape"])
+def test_wrappers_reject_bad_operands(bad):
+    fx = torch.zeros(2, 5, 6)
+    fy = torch.zeros(2, 4, 6)
+    lx = torch.tensor([5, 3], dtype=torch.int32)
+    ly = torch.tensor([4, 1], dtype=torch.int32)
+    s = torch.zeros(2, 5, 4)
+    calls = {
+        "int64 lengths": lambda: tl.la_log_factored(fx, fy, lx.long(), ly, ALPHA, *PARAMS),
+        "rank 7": lambda: tl.la_exp_factored(torch.zeros(2, 5, 7), torch.zeros(2, 4, 7),
+                                             lx, ly, ALPHA, *PARAMS),
+        "rank 1": lambda: tl.la_log_factored(fx[..., :1].contiguous(), fy[..., :1].contiguous(),
+                                             lx, ly, ALPHA, *PARAMS),
+        "strided": lambda: tl.la_exp(s.transpose(1, 2), lx, ly, *PARAMS),
+        "Ly too long": lambda: tl.la_log(torch.zeros(2, 3, tl.MAX_LY + 1), lx, ly, *PARAMS),
+        "scores2 shape": lambda: tl.la_log(s, lx, ly, *PARAMS, scores2=torch.zeros(2, 5, 3)),
+    }
+    with pytest.raises(ValueError):
+        calls[bad]()
+
+
+def _kernel_pair(**kw):
+    """The JAX BPLAKernel and the port's, built from one numpy table."""
+    table = kw.pop("table", jb.DEFAULT_BPLA_SCORE_TABLE)
+    return (jb.BPLAKernel(table, **kw),
+            bpla_kernel_from_numpy(table, device="cpu", **kw))
+
+
+@pytest.mark.parametrize("variant", ["default", "noBP", "SW", "rank 7 table"])
+def test_bpla_kernel_module_matches_jax(variant):
+    """forward and log_value of BPLAKernel (the port takes the factored
+    plain versions for rank <= 6, the affine ones above) against JAX."""
+    rng = np.random.default_rng(10)
+    x = _features(rng, 4, 12, [12, 9, 3, 12])
+    y = _features(rng, 4, 10, [10, 10, 6, 1])
+    kw = {"default": {}, "noBP": {"no_bp": True}, "SW": {"sw": True},
+          "rank 7 table": {"table": rng.normal(size=(5, 5)).astype(np.float32)}}[variant]
+    if variant == "rank 7 table":
+        x["profile"] = _profiles(rng, 4, 12, k=5)
+        y["profile"] = _profiles(rng, 4, 10, k=5)
+    jk, tk = _kernel_pair(**kw)
+    assert tk._factored_ok == (variant != "rank 7 table")
+    jx, jy = ({k: jnp.asarray(v) for k, v in d.items()} for d in (x, y))
+    tx, ty = ({k: torch.as_tensor(v) for k, v in d.items()} for d in (x, y))
+    rtol = 1e-5 if variant == "SW" else 1e-4
+    np.testing.assert_allclose(tk(tx, ty).numpy(), np.asarray(jk(jx, jy)), rtol=rtol)
+    if variant != "SW":
+        np.testing.assert_allclose(tk.log_value(tx, ty).numpy(),
+                                   np.asarray(jk.log_value(jx, jy)), rtol=rtol)
+
+
+@pytest.mark.parametrize("kernel", ["bpla log", "protein exp"])
+def test_gram_is_bit_identical_across_batch_sizes(kernel):
+    rng = np.random.default_rng(11)
+    n = 7
+    if kernel == "bpla log":
+        feats = _features(rng, n, 24, rng.integers(5, 25, n))
+        kern = tb.BPLAKernel()
+        fn, log_values = kern.log_value, True
+    else:
+        feats = {"profile": _profiles(rng, n, 16, k=23),
+                 "length": rng.integers(4, 17, n).astype(np.int32)}
+        table = torch.as_tensor(BLOSUM62)
+
+        def fn(x, y):
+            s = tb.la_score_matrix(x["profile"], y["profile"], table)
+            return tl.la_exp_auto(s, x["length"], y["length"], 0.11, -10.0, -1.0)
+
+        log_values = False
+    grams = [PairKernelEngine(fn, feats, device="cpu", batch_size=bs,
+                              log_values=log_values).gram(normalize=True)
+             for bs in (3, 256)]
+    assert np.isfinite(grams[0]).all()
+    assert np.array_equal(grams[0], grams[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K2 la_log_factored", "K3 la_exp_factored",
+                                    "K4 la_exp", "K5 la_log"])
+def test_cuda_kernel_matches_plain_version(kernel):
+    """Each hand-written kernel against its plain version on the card:
+    Lx != Ly, ragged lengths, and a pair's value alone equal to its value
+    inside the batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
+    rng = np.random.default_rng(12)
+    b, lx_max, ly_max = 9, 37, 70
+    lx = torch.as_tensor(rng.integers(0, lx_max + 1, b).astype(np.int32)).cuda()
+    ly = torch.as_tensor(rng.integers(1, ly_max + 1, b).astype(np.int32)).cuda()
+    if "factored" in kernel:
+        fx = torch.as_tensor((rng.normal(size=(b, lx_max, 6)) * 0.3).astype(np.float32)).cuda()
+        fy = torch.as_tensor((rng.normal(size=(b, ly_max, 6)) * 0.3).astype(np.float32)).cuda()
+        args = (fx, fy, lx, ly, ALPHA, *PARAMS)
+        wrapper = tl.la_log_factored if "log" in kernel else tl.la_exp_factored
+        first3 = (fx[:3].contiguous(), fy[:3].contiguous(), lx[:3], ly[:3], ALPHA, *PARAMS)
+        kw = {}
+    else:
+        s = torch.as_tensor(rng.uniform(-3, 2, (b, lx_max, ly_max)).astype(np.float32)).cuda()
+        s2 = torch.as_tensor(rng.uniform(-1, 1, (b, lx_max, ly_max)).astype(np.float32)).cuda()
+        args = (s, lx, ly, *PARAMS)
+        wrapper = tl.la_log if "log" in kernel else tl.la_exp
+        first3 = (s[:3].contiguous(), lx[:3], ly[:3], *PARAMS)
+        kw = {"scores2": s2, "alpha": 0.5}
+    reference = getattr(tl, f"{wrapper.__name__}_reference")
+    launches = wrapper.launches
+    got = wrapper(*args).cpu().numpy()
+    torch.cuda.synchronize()
+    assert wrapper.launches == launches + 1
+    want = reference(*args).cpu().numpy()
+    if "log" in kernel:
+        np.testing.assert_allclose(got, want, atol=3e-3)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-3)
+    assert np.array_equal(wrapper(*first3).cpu().numpy(), got[:3])
+    if kw:
+        got = wrapper(*args, **kw).cpu().numpy()
+        want = reference(*args, **kw).cpu().numpy()
+        np.testing.assert_allclose(got, want, **({"atol": 3e-3} if "log" in kernel
+                                                 else {"rtol": 1e-3}))
