@@ -37,10 +37,30 @@ Phases (the first failure exits non-zero; nothing is caught):
    ``PairKernelEngine`` on the proteins (rank 22, so K5), which must agree
    with the LA path's Gram;
 11. K2-K5 times against their plain versions (CUDA events, plain, kernel,
-   kernel, plain) and the BPLA and LA Gram rates.
+   kernel, plain) and the BPLA and LA Gram rates;
+12. K6 parity: the banded full stem kernel against its plain version at full
+   width (n = 301, band 16, B = 16) on the config-3 generator of
+   ``bench_full200.py`` (80-300 nt hairpins): the square case, lx != ly,
+   the same pairs swapped (bit-identical to the unswapped values) and PHMM
+   anchors at ``-a 0.5``, log K within 1e-3 abs; the first 3 pairs alone
+   must equal their values inside the batch bit for bit;
+13. full stem path: ``stem_kernel -n -b 16`` train on the config-3 corpus
+   (100 + 100 sequences), ``svm_tools train``, predict on 20 held-out
+   sequences; K6's launch count must rise in train and in predict; then
+   ``-b 16 -a 0.5`` on 40 of the sequences;
+14. ``stem_kernel`` with ``--device cpu`` against ``--device cuda`` on 6
+   sequences of 60-90 nt, banded (``-b 8``) and dense, within 1e-4;
+15. K6 time against its plain version (B = 16, n = 301), the ``-b 16``
+   train Gram's pairs/s, and the device busy share of its first 20 batches
+   under torch.profiler.
 
 Before each path every launch count is set to 0, and it is read just after.
-The last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+The line before the last lists every kernel with its launches on the main
+path, its error against its plain version, its time, its plain version's
+time and its bound: the larger of the bytes it must move over 3.35 TB/s and
+the operations this run's inputs need over 67 TFLOP/s f32 (the H100 SXM's
+published peaks).  The last line is ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -69,6 +89,21 @@ LA_BATCH = 256
 AMINO = "ARNDCQEGHILKMFPSTWYV"
 BPLA = (4.5, 0.11, -8.0, -0.75)  # alpha, beta, gap, ext (bpla_kernel defaults)
 PROT = (0.11, -10.0, -1.0)  # beta, gap, ext (la_kernel defaults)
+FULL_N = 200  # config 3 (bench_full200.py): 100 + 100 mixed 80-300 nt sequences
+FULL_TEST = 20
+FULL_A = 40  # sequences of the -b 16 -a 0.5 run
+FULL_BAND = 16
+FULL_PAD = 301  # pad width of a corpus whose longest sequence is 300 nt
+FULL_WEIGHTS = (0.8, 1.0, 0.5)  # gap, stack, subst (stem_kernel defaults)
+K6_ATOL = 1e-3  # log K, kernel against its plain version
+FULL_CPU_BAND = 1e-4  # stem_kernel --device cpu against --device cuda
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
+PEAK_F32 = 67e12  # H100 SXM f32 outside the tensor cores, operations/s
+# operations a cell needs, as each kernel's arithmetic counts them (a
+# transcendental, a division or a compare counts as one):
+LA_EXP_OPS = 12  # m = e(1 + a + bg g), the closure recurrence, g', the sum, exp
+LA_LOG_OPS = 30  # three logaddexp, the row max, exp(m - r), the closure, log
+K6_OPS = 23  # injection 6, window scans 6, re-anchor and combine 10, max 1
 
 
 def check(cond: bool, msg: str) -> None:
@@ -186,12 +221,171 @@ def predictions(path: str, n: int, name: str) -> float:
     return auc
 
 
+def make_mixed(n: int, seed: int = 0, lo: int = 80, hi: int = 300) -> list[str]:
+    """bench_full200.py's mixed structured set: stem / loop / reverse
+    complement, lengths lo..hi."""
+    rng = np.random.default_rng(seed)
+    comp = {"a": "u", "c": "g", "g": "c", "u": "a"}
+    out = []
+    for _ in range(n):
+        ln = int(rng.integers(lo, hi + 1))
+        stem = "".join(rng.choice(list("acgu"), size=ln // 3))
+        mid = "".join(rng.choice(list("acgu"), size=ln - 2 * len(stem)))
+        out.append(stem + mid + "".join(comp[c] for c in reversed(stem)))
+    return out
+
+
+def stem_features(seqs: list[str], pad: int) -> dict:
+    """The stem_kernel CLI's features (codes, lengths, pair weights) at one pad."""
+    from stem_kernel_torch.io.alphabet import encode
+    from stem_kernel_torch.models.full_stem import pair_weights
+
+    codes = np.zeros((len(seqs), pad), np.uint8)
+    lens = np.zeros(len(seqs), np.int32)
+    bp = np.zeros((len(seqs), pad, pad), np.float32)
+    for i, s in enumerate(seqs):
+        c = encode(s)
+        codes[i, :len(c)], lens[i] = c, len(c)
+        bp[i, :len(c), :len(c)] = pair_weights(c, len(c))
+    return {"codes": codes, "length": lens, "bp": bp}
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least ms on the card, what bounds it) for moving ``nbytes`` once and
+    doing ``ops`` f32 operations."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k1_bound(args: list, max_iters: int) -> tuple[float, str]:
+    """K1: per pair, min(iters, max_iters) iterations of four GEMMs
+    (M Vy^T, Vx (.), G Ay^T, Ax (.)), + L and * NS, then ux^T M uy."""
+    ns, iters = args[0], args[-1]
+    bsz, nx, ny = ns.shape
+    trips = float(torch.clamp(iters, max=max_iters).sum())
+    ops = trips * (4.0 * nx * ny * (nx + ny) + 2.0 * nx * ny) + bsz * 2.0 * nx * ny
+    nbytes = 4.0 * bsz * (2 * nx * ny + 2 * nx * nx + 2 * ny * ny + nx + ny + 2)
+    return bound(nbytes, ops)
+
+
+def la_bound(key: str, ops: list) -> tuple[float, str]:
+    """K2-K5: lx * ly cells a pair (this run's lengths), each a cell of the
+    closure plus its emission (2K operations from K factors, 1 from a slab)."""
+    lx, ly = ops[-2], ops[-1]
+    if key in ("K2", "K3"):
+        fx, fy = ops[0], ops[1]
+        lxc, lyc = torch.clamp(lx, max=fx.shape[1]), torch.clamp(ly, max=fy.shape[1])
+        per_cell = (LA_LOG_OPS if key == "K2" else LA_EXP_OPS) + 2 * fx.shape[2]
+        nbytes = 4.0 * (fx.numel() + fy.numel())
+    else:
+        s = ops[0]
+        lxc, lyc = torch.clamp(lx, max=s.shape[1]), torch.clamp(ly, max=s.shape[2])
+        per_cell = (LA_LOG_OPS if key == "K5" else LA_EXP_OPS) + 1
+        nbytes = 4.0 * s.numel()
+    cells = float((lxc.double() * lyc.double()).sum())
+    return bound(nbytes + 12.0 * lx.shape[0], cells * per_cell)
+
+
+def k6_bound(ops: list, band: int) -> tuple[float, str]:
+    """K6: per pair, L = max(lx, ly) levels; level d has L - d + 1 windows
+    of W^2 cells; the inputs are the codes, lengths and pair weights."""
+    lx, ly = ops[2], ops[3]
+    big = torch.maximum(lx, ly).double()
+    cells = float((big * (big + 1) / 2).sum()) * (2 * band + 1) ** 2
+    nbytes = (ops[0].numel() + ops[1].numel() + 4.0 * (ops[4].numel() + ops[5].numel())
+              + 12.0 * lx.shape[0])
+    return bound(nbytes, cells * K6_OPS)
+
+
+def device_busy(engine, n_ex: int, kernel: str, batches: int = 20) -> str:
+    """Device busy share of the first ``batches`` Gram batches under
+    torch.profiler: the summed device time of kernel events over the traced
+    wall, and the share of it in kernels whose name contains ``kernel``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    iu = np.triu_indices(n_ex)
+    count = batches * engine.batch_size
+    engine.run_pairs(iu[0][:engine.batch_size], iu[1][:engine.batch_size])  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.run_pairs(iu[0][:count], iu[1][:count])
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    total = named = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # an aten op's device column repeats its kernels' time
+        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+        total += us
+        named += us if kernel in e.key else 0.0
+    if total == 0.0:
+        return "device time not measured (the trace holds no kernel events)"
+    return (f"traced wall {wall_us / 1e3:.2f} ms, device {total / 1e3:.2f} ms "
+            f"({100 * total / wall_us:.1f}% busy), {kernel} {named / 1e3:.2f} ms "
+            f"({100 * named / total:.1f}% of device time)")
+
+
+def k6_parity(dev, feats: dict, rng: np.random.Generator) -> tuple[dict, list]:
+    """K6 against its plain version on pairs of ``feats`` (B = 16 each):
+    square, lx != ly, the same pairs swapped, and PHMM anchors at -a 0.5.
+    Returns (max abs error and per-case figures, the lx != ly operands)."""
+    from stem_kernel_torch.ops.full_stem_banded import (
+        full_stem_banded_log, full_stem_banded_log_reference,
+    )
+
+    n_ex = len(feats["length"])
+    lens = feats["length"]
+    sq = rng.integers(0, n_ex, 16)
+    ix = rng.integers(0, n_ex, 64)
+    iy = rng.integers(0, n_ex, 64)
+    keep = np.flatnonzero(lens[ix] != lens[iy])[:16]
+    ix, iy = ix[keep], iy[keep]
+    check(len(ix) == 16, "K6 parity: too few pairs with lx != ly")
+
+    def operands(a, b):
+        x, y = pick(feats, a, dev), pick(feats, b, dev)
+        return [x["codes"], y["codes"], x["length"], y["length"], x["bp"], y["bp"]]
+
+    rect = operands(ix, iy)
+    cases = [("square", operands(sq, sq), 0.0), ("lx != ly", rect, 0.0),
+             ("swapped", operands(iy, ix), 0.0), ("-a 0.5", rect, 0.5)]
+    report = {"max_abs_err": 0.0}
+    values = {}
+    for label, ops, ali in cases:
+        got = full_stem_banded_log(*ops, *FULL_WEIGHTS, band=FULL_BAND, ali_bound=ali)
+        want = full_stem_banded_log_reference(*ops, *FULL_WEIGHTS, band=FULL_BAND,
+                                              ali_bound=ali)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(want).all()), f"K6 {label}: plain version not finite")
+        check(bool(torch.isfinite(got).all()), f"K6 {label}: kernel output not finite")
+        err = float((got - want).abs().max())
+        alone = full_stem_banded_log(*[o[:3].contiguous() for o in ops], *FULL_WEIGHTS,
+                                     band=FULL_BAND, ali_bound=ali)
+        same = bool(torch.equal(alone, got[:3]))
+        values[label] = got
+        big = torch.maximum(ops[2], ops[3])
+        print(f"K6 parity, {label}: B=16 n={ops[0].shape[1]} band={FULL_BAND} max(lx, ly) "
+              f"{int(big.min())}..{int(big.max())}, log K {float(want.min()):.2f}.."
+              f"{float(want.max()):.2f}: max abs {err:.3e} (abs limit {K6_ATOL}); "
+              f"first 3 alone bit-identical {same}")
+        check(err <= K6_ATOL, f"K6 {label}: kernel disagrees with its plain version")
+        check(same, f"K6 {label}: a pair's value depends on its batch")
+        report["max_abs_err"] = max(report["max_abs_err"], err)
+    swap_same = bool(torch.equal(values["swapped"], values["lx != ly"]))
+    print(f"K6 parity: swapped pairs bit-identical to the unswapped values {swap_same}")
+    check(swap_same, "K6: a pair and its swap differ")
+    return report, rect
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 2
-    from stem_kernel_torch.cli import bpla_kernel, la_kernel, stem_kernel_lite, svm_tools
+    from stem_kernel_torch.cli import (
+        bpla_kernel, la_kernel, stem_kernel, stem_kernel_lite, svm_tools,
+    )
     from stem_kernel_torch.fold.bpmatrix import bpp_for_alignments, fold_sequences
     from stem_kernel_torch.gram.bucketed import bucketed_gram
     from stem_kernel_torch.gram.engine import PairKernelEngine
@@ -207,13 +401,16 @@ def main() -> int:
     from stem_kernel_torch.models.stem_kernel import fixed_point_operands, subst_co_table
     from stem_kernel_torch.ops import la
     from stem_kernel_torch.ops._build import build
+    from stem_kernel_torch.ops.full_stem_banded import (
+        full_stem_banded_log, full_stem_banded_log_reference,
+    )
     from stem_kernel_torch.ops.stem_fixed_point import (
         stem_fixed_point, stem_fixed_point_reference,
     )
     from stem_kernel_torch.utils.shuffle import dinucleotide_shuffle
 
     wrappers = {"K1": stem_fixed_point, "K2": la.la_log_factored, "K3": la.la_exp_factored,
-                "K4": la.la_exp, "K5": la.la_log}
+                "K4": la.la_exp, "K5": la.la_log, "K6": full_stem_banded_log}
 
     def reset_counts() -> None:
         for w in wrappers.values():
@@ -360,8 +557,9 @@ def main() -> int:
           f"(B=256 N={n_nodes} max_iters={iters}); fold {len(train) / fold_s:.1f} seqs/s; "
           f"Gram {n_pairs / gram_s:.1f} pairs/s ({gram_s:.2f} s); train flow {train_s:.2f} s; "
           f"predict flow {2 * N_TEST / predict_s:.2f} rows/s ({predict_s:.2f} s)")
+    k1_ms, k1_by = k1_bound(args, iters)
     report = {"K1": {"max_abs_err": max_abs, "max_rel_err": k1_rel, "ms": k_ms, "plain_ms": p_ms,
-                     "launches": launches}}
+                     "launches": launches, "bound_ms": k1_ms, "bound_by": k1_by}}
 
     # ---- 6. LA parity (K2-K5) at the paths' shapes ----
     alpha, beta, gap, ext = BPLA
@@ -563,9 +761,10 @@ def main() -> int:
     }
     for key, (kernel_fn, plain_fn, ops) in timing.items():
         ms, plain_ms = timed_pair(lambda: kernel_fn(*ops), lambda: plain_fn(*ops), 5)
-        report[key].update(ms=ms, plain_ms=plain_ms)
-        print(f"times on {smi}: {key} {ms:.4f} ms vs plain {plain_ms:.3f} ms "
-              f"({dims(key, ops)})")
+        bound_ms, bound_by = la_bound(key, ops)
+        report[key].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        print(f"times on {smi}: {key} {ms:.4f} ms vs plain {plain_ms:.3f} ms, bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({dims(key, ops)})")
     rates = {}
     for label, fn, feats, log_values in (
             ("bpla_kernel", kern.log_value, rna_feats, True),
@@ -583,6 +782,104 @@ def main() -> int:
           f"{bpla_featurize_s:.2f} s), predict flow {2 * N_TEST / bpla_predict_s:.2f} rows/s; "
           f"la_kernel train flow {la_train_s:.2f} s")
 
+    # ---- 12. K6 parity at full width (n = 301, band 16, B = 16) ----
+    full = make_mixed(FULL_N + FULL_TEST, seed=SEED)
+    full_train, full_test = full[:FULL_N], full[FULL_N:]
+    full_feats = stem_features(full_train, FULL_PAD)
+    report["K6"], k6_ops = k6_parity(dev, full_feats, np.random.default_rng(SEED + 2))
+
+    # ---- 13. full stem path: stem_kernel -n -b 16 train, svm train, predict ----
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    half, thalf = FULL_N // 2, FULL_TEST // 2
+    write_fasta(p("fpos.fa"), full_train[:half], "p")
+    write_fasta(p("fneg.fa"), full_train[half:], "n")
+    write_fasta(p("ftpos.fa"), full_test[:thalf], "tp")
+    write_fasta(p("ftneg.fa"), full_test[thalf:], "tn")
+    n_a = min(FULL_A // 2, half)  # the -a run's sequences per class
+    write_fasta(p("fapos.fa"), full_train[:n_a], "p")
+    write_fasta(p("faneg.fa"), full_train[half:half + n_a], "n")
+    band_flags = ["-b", str(FULL_BAND)]
+    reset_counts()
+    t0 = time.perf_counter()
+    stem_kernel.main(["--device", "cuda", "-n", *band_flags, p("full.dat"),
+                      "+1", p("fpos.fa"), "-1", p("fneg.fa")])
+    full_train_s = time.perf_counter() - t0
+    full_train_launches = full_stem_banded_log.launches
+    svm_tools.train_main([p("full.dat"), p("full.model")])
+    t0 = time.perf_counter()
+    stem_kernel.main(["--device", "cuda", "-n", *band_flags, p("full_test.dat"),
+                      "--model", p("full.model"), "--predict", p("full_pred.txt"),
+                      "+1", p("fpos.fa"), "-1", p("fneg.fa"),
+                      "--test", "+1", p("ftpos.fa"), "-1", p("ftneg.fa")])
+    full_predict_s = time.perf_counter() - t0
+    full_counts = counts()
+    report["K6"]["launches"] = full_counts["K6"]
+    labels, g_full = read_precomputed(p("full.dat"))
+    full_labels = ["+1"] * half + ["-1"] * half
+    n_full_pairs = FULL_N * (FULL_N + 1) // 2
+    full_auc = predictions(p("full_pred.txt"), FULL_TEST, "stem_kernel -b")
+    print(f"full stem path (-b {FULL_BAND}): train Gram {g_full.shape}, {n_full_pairs} pairs, "
+          f"K6 launches {full_train_launches} (train) {full_counts['K6']} (train + predict); "
+          f"all counts {full_counts}; predict: {FULL_TEST} rows, AUC {full_auc:.4f} (both "
+          "classes come from one generator, as in config 3)")
+    check(full_train_launches > 0 and full_counts["K6"] > full_train_launches,
+          "the full stem path did not launch K6 in train and predict")
+    gram_checks("stem_kernel -b", g_full, FULL_N, labels, full_labels)
+    reset_counts()
+    t0 = time.perf_counter()
+    stem_kernel.main(["--device", "cuda", "-n", *band_flags, "-a", "0.5", p("full_a.dat"),
+                      "+1", p("fapos.fa"), "-1", p("faneg.fa")])
+    full_a_s = time.perf_counter() - t0
+    a_counts = counts()
+    labels, g_a = read_precomputed(p("full_a.dat"))
+    print(f"full stem path (-b {FULL_BAND} -a 0.5): train Gram {g_a.shape} in {full_a_s:.2f} s; "
+          f"all counts {a_counts}")
+    check(a_counts["K6"] > 0, "the -a path never launched K6")
+    gram_checks("stem_kernel -b -a", g_a, 2 * n_a, labels, ["+1"] * n_a + ["-1"] * n_a)
+
+    # ---- 14. --device cpu against --device cuda, banded and dense ----
+    small_full = make_mixed(6, seed=SEED + 3, lo=60, hi=90)
+    write_fasta(p("sfpos.fa"), small_full[:3], "p")
+    write_fasta(p("sfneg.fa"), small_full[3:], "n")
+    for route, flags in (("-b 8", ["-b", "8"]), ("dense", [])):
+        for d in ("cuda", "cpu"):
+            stem_kernel.main(["--device", d, "-n", *flags, p(f"sf_{d}.dat"),
+                              "+1", p("sfpos.fa"), "-1", p("sfneg.fa")])
+        diff = float(np.abs(read_precomputed(p("sf_cuda.dat"))[1]
+                            - read_precomputed(p("sf_cpu.dat"))[1]).max())
+        print(f"stem_kernel {route}, 6 sequences of 60-90 nt, cuda vs cpu: Gram max abs "
+              f"diff {diff:.3e} (band {FULL_CPU_BAND})")
+        check(diff <= FULL_CPU_BAND, f"stem_kernel {route}: cuda and cpu Grams disagree")
+    tmp_dir.cleanup()
+
+    # ---- 15. K6 times, and the -b 16 train Gram's rate ----
+    k6_ms, k6_plain_ms = timed_pair(
+        lambda: full_stem_banded_log(*k6_ops, *FULL_WEIGHTS, band=FULL_BAND),
+        lambda: full_stem_banded_log_reference(*k6_ops, *FULL_WEIGHTS, band=FULL_BAND), 3)
+    k6_bound_ms, k6_by = k6_bound(k6_ops, FULL_BAND)
+    report["K6"].update(ms=k6_ms, plain_ms=k6_plain_ms, bound_ms=k6_bound_ms, bound_by=k6_by)
+    cli_feats = stem_features(full_train, max(len(x) for x in full_train) + 1)
+
+    def banded_fn(x, y):
+        return full_stem_banded_log(x["codes"], y["codes"], x["length"], y["length"],
+                                    x["bp"], y["bp"], *FULL_WEIGHTS, band=FULL_BAND)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    PairKernelEngine(banded_fn, cli_feats, device=dev, batch_size=16,
+                     log_values=True).gram(normalize=True)
+    torch.cuda.synchronize()
+    full_gram_s = time.perf_counter() - t0
+    busy = device_busy(PairKernelEngine(banded_fn, cli_feats, device=dev, batch_size=16,
+                                        log_values=True), FULL_N, "full_stem_level")
+    print(f"-b {FULL_BAND} Gram, first 20 batches traced: {busy}")
+    print(f"times on {smi}: K6 {k6_ms:.3f} ms vs plain {k6_plain_ms:.3f} ms, bound "
+          f"{k6_bound_ms:.4f} ms by {k6_by} (B=16 n={k6_ops[0].shape[1]} band={FULL_BAND}, "
+          f"lx != ly); -b {FULL_BAND} Gram {n_full_pairs / full_gram_s:.1f} pairs/s "
+          f"({full_gram_s:.2f} s, batch 16); train flow {full_train_s:.2f} s, predict flow "
+          f"{FULL_TEST / full_predict_s:.2f} rows/s ({full_predict_s:.2f} s)")
+
     meta = {
         "K1": ("stem_fixed_point", "stem_kernel_torch/csrc/stem_fixed_point.cu",
                "stem_kernel_tpu/ops/pallas_stem.py:119"),
@@ -594,12 +891,15 @@ def main() -> int:
                "stem_kernel_tpu/ops/pallas_la.py:137"),
         "K5": ("la_log", "stem_kernel_torch/csrc/la_dp.cu",
                "stem_kernel_tpu/ops/pallas_la.py:281"),
+        "K6": ("full_stem_banded_log", "stem_kernel_torch/csrc/full_stem_banded.cu",
+               "stem_kernel_tpu/ops/pallas_full_stem.py:426"),
     }
+    keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    # no single PyTorch call computes any of these functions: library_ms is null
     print(json.dumps({"kernels": [
         {"name": nm, "route": "cuda", "source": src, "replaces": rep,
-         "launches": report[k]["launches"], "max_abs_err": report[k]["max_abs_err"],
-         "max_rel_err": report[k]["max_rel_err"], "ms": report[k]["ms"],
-         "plain_ms": report[k]["plain_ms"]}
+         **{f: report[k][f] for f in keys}, "library_ms": None,
+         **({"max_rel_err": report[k]["max_rel_err"]} if "max_rel_err" in report[k] else {})}
         for k, (nm, src, rep) in meta.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -99,4 +99,9 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [p] * 4 + [i] * n_int + [f] * 6 + [p, p]
         fn.restype = ctypes.c_int
+    # (x, y, bp_x, bp_y, lx, ly, a, k0, g0, k1, g1, scale, log_scale, out,
+    #  batch, n, band, max_lx, gap, stack, subst, stream)
+    fn = lib.full_stem_banded_f32
+    fn.argtypes = [p] * 14 + [i] * 4 + [f] * 3 + [p]
+    fn.restype = ctypes.c_int
     return lib

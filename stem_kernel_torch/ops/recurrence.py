@@ -1,8 +1,7 @@
 """First-order semiring recurrences along the last axis, for a constant weight.
 
-Port of ``stem_kernel_tpu/ops/recurrence.py``.  Torch has no associative
-scan, so each recurrence takes a closed form that is exact for a constant
-weight ``a``:
+Port of ``stem_kernel_tpu/ops/recurrence.py``, which runs each recurrence as
+an associative scan.  Here:
 
 - sum-product, ``linear_recurrence``.  The closed form
   ``a^t * cumsum(b * a^-t)`` overflows f32 once the axis passes a few
@@ -13,12 +12,18 @@ weight ``a``:
 
   whose entries are all <= 1 for |a| <= 1: exact, and no overflow at any
   length;
-- log-semiring, ``logsumexp_recurrence``:
-  ``x[t] = a*t + logcumsumexp_s(b[s] - a*s)``;
-- max-plus, ``maxplus_recurrence``: ``x[t] = a*t + cummax_s(b[s] - a*s)``.
+- log-semiring, ``logsumexp_recurrence``, and max-plus,
+  ``maxplus_recurrence``: a doubling (Hillis-Steele) scan, log2(n) steps of
 
-In log space the shift ``a*s`` is additive and stays small (|a| * length),
-so the last two need no matrix.
+      x[..., s:] = op(x[..., s:], x[..., :-s] + a*s),    s = 1, 2, 4, ...
+
+  with ``op`` logaddexp or maximum.  Each step combines two partial results
+  of the same magnitude, as the associative scan does, so the error does
+  not grow with |a| * length.  (The closed form ``a*t + logcumsumexp(b -
+  a*t)`` lost 4.3e-4 at a = -15, length 300 in f32, because the ramp a*t
+  reaches the thousands.)  Every row is scanned on its own, so a row's
+  value never depends on the batch.  Inputs masked with a large finite
+  negative stay finite.
 """
 
 from __future__ import annotations
@@ -57,33 +62,35 @@ def linear_recurrence(a: float, b: torch.Tensor, *, reverse: bool = False,
     return torch.bmm(rows, matrix.expand(rows.shape[0], n, n)).reshape(b.shape)
 
 
-def _ramp(a: float, b: torch.Tensor, reverse: bool) -> torch.Tensor:
-    """a * t along the last axis (t counted from the end when ``reverse``)."""
-    t = torch.arange(b.shape[-1], device=b.device, dtype=b.dtype)
-    return float(a) * (t.flip(0) if reverse else t)
+def _doubling_scan(op, a: float, b: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """x[t] = op over s <= t of (b[s] + a*(t-s)) (s >= t when ``reverse``)."""
+    n = b.shape[-1]
+    x = b
+    s = 1
+    while s < n:
+        shift = float(a) * s
+        if reverse:
+            x = torch.cat([op(x[..., :-s], x[..., s:] + shift), x[..., n - s:]], -1)
+        else:
+            x = torch.cat([x[..., :s], op(x[..., s:], x[..., :-s] + shift)], -1)
+        s *= 2
+    return x
 
 
 def logsumexp_recurrence(a: float, b: torch.Tensor, *,
                          reverse: bool = False) -> torch.Tensor:
     """Solve x[t] = logaddexp(x[t-1] + a, b[t]) with x[-1] = -inf.
 
-    Element t equals logsumexp_{s<=t} (b[s] + a*(t-s)), computed as
-    ``a*t + logcumsumexp(b - a*t)``.  ``a`` is a Python scalar.
+    Element t equals logsumexp_{s<=t} (b[s] + a*(t-s)).  ``a`` is a Python
+    scalar; ``reverse`` runs the recurrence from the end.
     """
-    ramp = _ramp(a, b, reverse)
-    if reverse:
-        return ramp + torch.logcumsumexp((b - ramp).flip(-1), -1).flip(-1)
-    return ramp + torch.logcumsumexp(b - ramp, -1)
+    return _doubling_scan(torch.logaddexp, a, b, reverse)
 
 
 def maxplus_recurrence(a: float, b: torch.Tensor, *,
                        reverse: bool = False) -> torch.Tensor:
     """Solve x[t] = max(x[t-1] + a, b[t]) with x[-1] = -inf.
 
-    Element t equals max_{s<=t} (b[s] + a*(t-s)), computed as
-    ``a*t + cummax(b - a*t)``.  ``a`` is a Python scalar.
+    Element t equals max_{s<=t} (b[s] + a*(t-s)).  ``a`` is a Python scalar.
     """
-    ramp = _ramp(a, b, reverse)
-    if reverse:
-        return ramp + torch.cummax((b - ramp).flip(-1), -1).values.flip(-1)
-    return ramp + torch.cummax(b - ramp, -1).values
+    return _doubling_scan(torch.maximum, a, b, reverse)

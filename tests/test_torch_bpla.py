@@ -102,13 +102,20 @@ def test_bpla_profiles_and_features_match_jax():
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-@pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("kind", ["logsumexp", "maxplus"])
-def test_recurrences_match_jax(kind, reverse):
+_RECURRENCE_CASES = [  # (kind, reverse, weight, length): the BPLA scan weights
+    (kind, reverse, -0.0825 if kind == "logsumexp" else -0.75, 70)  # at L=70, and
+    for kind in ("logsumexp", "maxplus") for reverse in (False, True)
+] + [(kind, reverse, -15.0, 300)  # the PHMM's in-row IY weight on a 300-column row
+     for kind in ("logsumexp", "maxplus") for reverse in (False, True)]
+
+
+@pytest.mark.parametrize(
+    "kind,reverse,a,length", _RECURRENCE_CASES,
+    ids=[f"{k}-{r}" + ("" if n == 70 else f"-phmm{n}") for k, r, _, n in _RECURRENCE_CASES])
+def test_recurrences_match_jax(kind, reverse, a, length):
     rng = np.random.default_rng(6)
-    b = rng.normal(scale=3.0, size=(3, 2, 70)).astype(np.float32)
+    b = rng.normal(scale=3.0, size=(3, 2, length)).astype(np.float32)
     b[0, 0, 10:20] = tb.NEG_LARGE
-    a = -0.0825 if kind == "logsumexp" else -0.75
     want = np.asarray(getattr(jr, f"{kind}_recurrence")(a, jnp.asarray(b), reverse=reverse))
     got = getattr(tr, f"{kind}_recurrence")(a, torch.as_tensor(b), reverse=reverse).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
