@@ -1,6 +1,7 @@
 """One-command proof that the PyTorch port runs its paths on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k6-values OUT.json   # phase 12's K6 log K only
 
 Phases (the first failure exits non-zero; nothing is caught):
 
@@ -43,7 +44,14 @@ Phases (the first failure exits non-zero; nothing is caught):
    ``bench_full200.py`` (80-300 nt hairpins): the square case, lx != ly,
    the same pairs swapped (bit-identical to the unswapped values) and PHMM
    anchors at ``-a 0.5``, log K within 1e-3 abs; the first 3 pairs alone
-   must equal their values inside the batch bit for bit;
+   must equal their values inside the batch bit for bit, and every case the
+   values in ``tests/golden/k6_log_k.json`` bit for bit (the kernel's log K
+   with ``__fdiv_rn`` division at git commit e9461d9, written by
+   ``--k6-values`` from a checkout of that commit); the kernel's division by
+   a level's scale must equal IEEE f32 division bit for bit where the
+   quotient is normal and within one unit in the last place where it is
+   subnormal (dividends 2^-149..2^20, scales 1e-30..1e12); one long pair
+   (two ~1,000 nt sequences, B = 2) within 1e-3 abs;
 13. full stem path: ``stem_kernel -n -b 16`` train on the config-3 corpus
    (100 + 100 sequences), ``svm_tools train``, predict on 20 held-out
    sequences; K6's launch count must rise in train and in predict; then
@@ -96,6 +104,8 @@ FULL_BAND = 16
 FULL_PAD = 301  # pad width of a corpus whose longest sequence is 300 nt
 FULL_WEIGHTS = (0.8, 1.0, 0.5)  # gap, stack, subst (stem_kernel defaults)
 K6_ATOL = 1e-3  # log K, kernel against its plain version
+K6_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden",
+                            "k6_log_k.json")
 FULL_CPU_BAND = 1e-4  # stem_kernel --device cpu against --device cuda
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_F32 = 67e12  # H100 SXM f32 outside the tensor cores, operations/s
@@ -326,14 +336,10 @@ def device_busy(engine, n_ex: int, kernel: str, batches: int = 20) -> str:
             f"({100 * named / total:.1f}% of device time)")
 
 
-def k6_parity(dev, feats: dict, rng: np.random.Generator) -> tuple[dict, list]:
-    """K6 against its plain version on pairs of ``feats`` (B = 16 each):
-    square, lx != ly, the same pairs swapped, and PHMM anchors at -a 0.5.
-    Returns (max abs error and per-case figures, the lx != ly operands)."""
-    from stem_kernel_torch.ops.full_stem_banded import (
-        full_stem_banded_log, full_stem_banded_log_reference,
-    )
-
+def k6_cases(dev, feats: dict, rng: np.random.Generator) -> list:
+    """Phase 12's K6 operands, B = 16 pairs of ``feats`` each: (label,
+    operands, ali_bound) for the square case, lx != ly, the same pairs
+    swapped, and PHMM anchors at -a 0.5."""
     n_ex = len(feats["length"])
     lens = feats["length"]
     sq = rng.integers(0, n_ex, 16)
@@ -348,8 +354,28 @@ def k6_parity(dev, feats: dict, rng: np.random.Generator) -> tuple[dict, list]:
         return [x["codes"], y["codes"], x["length"], y["length"], x["bp"], y["bp"]]
 
     rect = operands(ix, iy)
-    cases = [("square", operands(sq, sq), 0.0), ("lx != ly", rect, 0.0),
-             ("swapped", operands(iy, ix), 0.0), ("-a 0.5", rect, 0.5)]
+    return [("square", operands(sq, sq), 0.0), ("lx != ly", rect, 0.0),
+            ("swapped", operands(iy, ix), 0.0), ("-a 0.5", rect, 0.5)]
+
+
+def k6_feats() -> tuple[list[str], list[str], dict]:
+    """The config-3 corpus (train and test sequences) and the training
+    sequences' features at the full pad."""
+    full = make_mixed(FULL_N + FULL_TEST, seed=SEED)
+    return full[:FULL_N], full[FULL_N:], stem_features(full[:FULL_N], FULL_PAD)
+
+
+def k6_parity(dev, feats: dict, rng: np.random.Generator) -> tuple[dict, list]:
+    """K6 against its plain version and the reference values on the cases of
+    :func:`k6_cases`, its division against IEEE division, and one long pair.
+    Returns (max abs error against the plain version, the lx != ly operands)."""
+    from stem_kernel_torch.ops.full_stem_banded import (
+        _div_scale, full_stem_banded_log, full_stem_banded_log_reference,
+    )
+
+    cases = k6_cases(dev, feats, rng)
+    with open(K6_REFERENCE) as f:
+        ref = json.load(f)["cases"]
     report = {"max_abs_err": 0.0}
     values = {}
     for label, ops, ali in cases:
@@ -363,19 +389,83 @@ def k6_parity(dev, feats: dict, rng: np.random.Generator) -> tuple[dict, list]:
         alone = full_stem_banded_log(*[o[:3].contiguous() for o in ops], *FULL_WEIGHTS,
                                      band=FULL_BAND, ali_bound=ali)
         same = bool(torch.equal(alone, got[:3]))
+        golden = torch.tensor(ref[label], dtype=torch.float32)
+        kept = int((got.cpu() == golden).sum())
         values[label] = got
         big = torch.maximum(ops[2], ops[3])
         print(f"K6 parity, {label}: B=16 n={ops[0].shape[1]} band={FULL_BAND} max(lx, ly) "
               f"{int(big.min())}..{int(big.max())}, log K {float(want.min()):.2f}.."
               f"{float(want.max()):.2f}: max abs {err:.3e} (abs limit {K6_ATOL}); "
-              f"first 3 alone bit-identical {same}")
+              f"first 3 alone bit-identical {same}; reference values bit-identical "
+              f"{kept}/{len(golden)} (max abs {float((got.cpu() - golden).abs().max()):.3e})")
         check(err <= K6_ATOL, f"K6 {label}: kernel disagrees with its plain version")
         check(same, f"K6 {label}: a pair's value depends on its batch")
+        check(kept == len(golden), f"K6 {label}: log K differs from the reference values")
         report["max_abs_err"] = max(report["max_abs_err"], err)
     swap_same = bool(torch.equal(values["swapped"], values["lx != ly"]))
     print(f"K6 parity: swapped pairs bit-identical to the unswapped values {swap_same}")
     check(swap_same, "K6: a pair and its swap differ")
-    return report, rect
+
+    # the division by a level's scale, against IEEE f32 division: the f64
+    # quotient of two f32 values rounded to f32 is the correctly rounded one
+    x = (2.0 ** rng.uniform(-149, 20, 1 << 22)).astype(np.float32)
+    x[rng.random(x.size) < 0.05] = 0.0
+    xt = torch.as_tensor(x, device=dev)
+    normal_bad = sub_bad = sub_n = worst = 0
+    scales = (1e-30, 1e-20, 1e-6, 0.37, 1.0, 3.0, 97.5, 1234.5, 1e6, 1e12)
+    for m in map(np.float32, scales):
+        want = (x.astype(np.float64) / np.float64(m)).astype(np.float32)
+        got = _div_scale(xt, float(m)).cpu().numpy()
+        bad = got.view(np.int32) != want.view(np.int32)
+        sub = np.abs(want) < np.float32(2.0 ** -126)
+        normal_bad += int((bad & ~sub).sum())
+        sub_bad += int((bad & sub).sum())
+        sub_n += int(sub.sum())
+        ulps = np.abs(got.view(np.int32).astype(np.int64) - want.view(np.int32))
+        worst = max(worst, int(ulps.max()))
+    print(f"K6 division by the scale: {len(scales) * x.size:,} quotients (dividends "
+          f"2^-149..2^20 and 0, scales 1e-30..1e12): {normal_bad} normal quotients differ "
+          f"from IEEE f32 division; {sub_bad} of {sub_n:,} subnormal ones differ, by at most "
+          f"{worst} unit in the last place")
+    check(normal_bad == 0 and worst <= 1, "K6: the scale division is not IEEE division")
+
+    # one long pair: the kernel takes any length the TPU kernel took
+    long = make_mixed(2, seed=SEED + 4, lo=950, hi=1000)
+    lf = stem_features(long, max(len(q) for q in long) + 1)
+    xl, yl = pick(lf, np.array([0, 1]), dev), pick(lf, np.array([1, 1]), dev)
+    lops = [xl["codes"], yl["codes"], xl["length"], yl["length"], xl["bp"], yl["bp"]]
+    got = full_stem_banded_log(*lops, *FULL_WEIGHTS, band=FULL_BAND)
+    want = full_stem_banded_log_reference(*lops, *FULL_WEIGHTS, band=FULL_BAND)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    print(f"K6 long pair: lengths {[len(q) for q in long]}, B=2 n={lops[0].shape[1]}: log K "
+          f"{[round(v, 3) for v in got.tolist()]}: max abs {err:.3e} (abs limit {K6_ATOL})")
+    check(bool(torch.isfinite(got).all()) and err <= K6_ATOL,
+          "K6: the long pair disagrees with its plain version")
+    report["max_abs_err"] = max(report["max_abs_err"], err)
+    return report, cases[1][1]
+
+
+def k6_values(path: str) -> int:
+    """Write log K of phase 12's K6 cases, by the importable package's
+    kernel, to ``path`` as JSON: how ``tests/golden/k6_log_k.json`` is made
+    from a checkout of the commit whose values it holds."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
+              file=sys.stderr)
+        return 2
+    from stem_kernel_torch.ops.full_stem_banded import full_stem_banded_log
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = k6_cases(dev, k6_feats()[2], np.random.default_rng(SEED + 2))
+    out = {label: full_stem_banded_log(*ops, *FULL_WEIGHTS, band=FULL_BAND,
+                                       ali_bound=ali).cpu().tolist()
+           for label, ops, ali in cases}
+    with open(path, "w") as f:
+        json.dump({"band": FULL_BAND, "weights": FULL_WEIGHTS, "cases": out}, f, indent=1)
+    print(f"K6 log K of {len(out)} cases written to {path}")
+    return 0
 
 
 def main() -> int:
@@ -783,9 +873,7 @@ def main() -> int:
           f"la_kernel train flow {la_train_s:.2f} s")
 
     # ---- 12. K6 parity at full width (n = 301, band 16, B = 16) ----
-    full = make_mixed(FULL_N + FULL_TEST, seed=SEED)
-    full_train, full_test = full[:FULL_N], full[FULL_N:]
-    full_feats = stem_features(full_train, FULL_PAD)
+    full_train, full_test, full_feats = k6_feats()
     report["K6"], k6_ops = k6_parity(dev, full_feats, np.random.default_rng(SEED + 2))
 
     # ---- 13. full stem path: stem_kernel -n -b 16 train, svm train, predict ----
@@ -907,4 +995,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(k6_values(sys.argv[2]) if sys.argv[1:2] == ["--k6-values"] else main())

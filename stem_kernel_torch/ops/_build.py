@@ -104,4 +104,8 @@ def load_library() -> ctypes.CDLL:
     fn = lib.full_stem_banded_f32
     fn.argtypes = [p] * 14 + [i] * 4 + [f] * 3 + [p]
     fn.restype = ctypes.c_int
+    # (x, n, m, out, stream)
+    fn = lib.full_stem_div_scale_f32
+    fn.argtypes = [p, i, f, p, p]
+    fn.restype = ctypes.c_int
     return lib

@@ -16,6 +16,8 @@ kernel: one launch per level d = 1..max(lx), each over the valid blocks
 Dispatch: a CPU tensor takes :func:`full_stem_banded_log_reference`; a CUDA
 tensor launches the kernel or raises.  Nothing falls back.
 ``full_stem_banded_log.launches`` counts the calls that ran the kernel.
+:func:`_div_scale` runs the kernel's division by a level's scale on its own,
+for the checks that hold it to IEEE division.
 """
 
 from __future__ import annotations
@@ -114,6 +116,20 @@ def full_stem_banded_log(x_codes, y_codes, lx, ly, bp_x, bp_y, gap, stack, subst
         raise RuntimeError(f"full_stem_banded kernel launch failed: CUDA error {rc}")
     full_stem_banded_log.launches += 1
     return out  # a pair with lx = 0 is never visited: log K = 0
+
+
+def _div_scale(x: torch.Tensor, m: float) -> torch.Tensor:
+    """x / m by the kernel's division of a level's scale (CUDA f32 only)."""
+    if x.device.type != "cuda" or x.dtype != torch.float32 or not x.is_contiguous():
+        raise ValueError("x must be a contiguous float32 CUDA tensor")
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        rc = load_library().full_stem_div_scale_f32(
+            x.data_ptr(), x.numel(), float(m), out.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"full_stem_div_scale launch failed: CUDA error {rc}")
+    return out
 
 
 full_stem_banded_log.launches = 0  # wrapper calls that launched the kernel

@@ -287,20 +287,37 @@ def test_wrapper_takes_the_plain_version_on_cpu():
     assert tk.full_stem_banded_log.launches == before  # no kernel on the CPU
 
 
-@pytest.mark.parametrize("bad", ["band 0", "band 33", "int64 lengths", "float64 weights",
-                                 "int codes", "strided weights", "weights shape"])
+@pytest.mark.parametrize("bad", ["band 0", "band 33", "band float", "int64 lengths",
+                                 "int64 y lengths", "lengths shape", "float64 weights",
+                                 "float16 x weights", "int codes", "float y codes", "1-D codes",
+                                 "1-D y codes", "strided weights", "strided y weights",
+                                 "weights shape"])
 def test_wrapper_rejects_bad_operands(bad):
     x, y, lx, ly, bx, by = _t(*_pack([("gggaaacccaugc", "gggaaaccc")]))
     args = {"x": x, "y": y, "lx": lx, "ly": ly, "bx": bx, "by": by}
-    band = {"band 0": 0, "band 33": 33}.get(bad, 4)
+    band = {"band 0": 0, "band 33": 33, "band float": 4.0}.get(bad, 4)
     if bad == "int64 lengths":
         args["lx"] = lx.long()
+    elif bad == "int64 y lengths":
+        args["ly"] = ly.long()
+    elif bad == "lengths shape":
+        args["lx"] = torch.cat([lx, lx])
     elif bad == "float64 weights":
         args["by"] = by.double()
+    elif bad == "float16 x weights":
+        args["bx"] = bx.half()
     elif bad == "int codes":
         args["x"] = x.int()
+    elif bad == "float y codes":
+        args["y"] = y.float()
+    elif bad == "1-D codes":
+        args["x"] = x[0]
+    elif bad == "1-D y codes":
+        args["y"] = y[0]
     elif bad == "strided weights":
         args["bx"] = bx.transpose(1, 2)
+    elif bad == "strided y weights":
+        args["by"] = by.transpose(1, 2)
     elif bad == "weights shape":
         args["by"] = by[:, :-1, :-1]
     with pytest.raises(ValueError):
@@ -311,6 +328,28 @@ def test_precision_other_than_highest_is_rejected():
     ops = _t(*_pack([("gggaaaccc", "gggaaaccc")]))
     with pytest.raises(ValueError, match="highest"):
         tf.full_stem_kernel_banded_log(*ops, *WEIGHTS, band=3, precision="default")
+
+
+@pytest.mark.cuda
+def test_cuda_scale_division_is_ieee():
+    """The kernel divides by a level's scale without __fdiv_rn's branch: the
+    quotient is the IEEE f32 one (the f64 quotient of two f32 values, rounded
+    to f32) bit for bit wherever it is a normal f32, and within one unit in
+    the last place where it is subnormal; dividends span 2^-149..2^20."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
+    rng = np.random.default_rng(28)
+    x = (2.0 ** rng.uniform(-149, 20, 1 << 20)).astype(np.float32)
+    x[rng.random(x.size) < 0.05] = 0.0
+    xt = torch.as_tensor(x, device="cuda")
+    for m in (1e-30, 1e-6, 0.37, 1.0, 3.0, 1234.5, 1e12):
+        m = np.float32(m)
+        want = (x.astype(np.float64) / np.float64(m)).astype(np.float32)
+        got = tk._div_scale(xt, float(m)).cpu().numpy()
+        normal = np.abs(want) >= np.float32(2.0 ** -126)
+        assert np.array_equal(got[normal].view(np.int32), want[normal].view(np.int32))
+        ulps = np.abs(got.view(np.int32).astype(np.int64) - want.view(np.int32))
+        assert ulps.max() <= 1
 
 
 @pytest.mark.cuda
