@@ -6,26 +6,44 @@
 Phases (the first failure exits non-zero; nothing is caught):
 
 1. environment: the card's name and power limit (nvidia-smi), CUDA, TF32 off;
-2. build: the CUDA library from ``stem_kernel_torch/csrc``;
-3. K1 parity: the closure fixed point kernel against its plain torch
-   version on real DAG features of the corpus (B=256 pairs within the
-   largest node bucket, and B=256 pairs across it and the next largest, as
-   the Gram's cross-bucket blocks run; true per-pair trip counts), rel 1e-4;
+2. build: the CUDA library from ``stem_kernel_torch/csrc``, and the
+   registers, spills and barriers ptxas gave K1's cluster kernels;
+3. K1 parity: the closure fixed point through its wrapper in each product
+   mode ("highest" f32, "high" 3xTF32, "default" bf16) against its plain
+   torch version in the mode of the route the wrapper takes (the cluster
+   kernel up to 128 nodes; the per-product kernel, f32 for every name,
+   past it and for 64 x 128 in 3xTF32), on real DAG features of the corpus
+   (B=256 pairs within the most populous node bucket, across it and the
+   next, and across the smallest and it, as the Gram's cross-bucket blocks
+   run them; true per-pair trip counts) and on random operands of 64 nodes
+   (a one-CTA cluster), 112 x 48 (a padded rectangular cluster), 256 and
+   320 x 288 nodes: every mode within rel 1e-4; bf16 also at least 10x
+   nearer plain bf16 than plain f32; each mode's error against the plain f32
+   version is printed, and "high" must stay within JAX "high"'s own 9.0e-4
+   of f32;
 4. stem path: ``stem_kernel_lite`` train on 100 hairpin-family sequences and
    100 dinucleotide shuffles (length 120, fixed seed), ``svm_tools train``,
-   then the predict flow on 40 held-out sequences; K1's launch count must
-   rise, the Gram must be finite, symmetric with unit diagonal, the
+   then the predict flow on 40 held-out sequences; both K1 routes' launch
+   counts must rise, the Gram must be finite, symmetric with unit diagonal, the
    predictions written; a small subset is rerun with ``--device cpu`` (the
    plain versions): the two Grams must agree within the 1.4e-2 CLI band and
    the two folds within 5e-4 BPP;
-5. K1 times with CUDA events / synchronized host clocks;
+5. K1 times in the three modes against the plain f32 version (CUDA events;
+   B=256, N=128), with each mode's bound on its unit and the cluster
+   geometry; every block shape of the stem Gram on both routes (the cluster
+   kernel in each mode where it can run, beside the per-product kernel: the
+   times that place the wrapper's cut-over); the per-product kernel against
+   the plain f32 version at the shape it takes most often on the path; and
+   the stem path's fold, Gram and flow rates (synchronized host clocks);
 6. LA parity: K2-K5 against their plain versions at the shapes of the paths
    below, each square and Lx != Ly (BPLA factors of the folded corpus at
    L=120 and random factors at L=400 for K2; random-profile factors at
    L 32-64 for K3; BLOSUM62 protein scores at L 50-80 for K4 and K5; the
    corpus's (w_pair, w_unpair) through ``la_log_affine_auto`` for K5), exp
-   rel 1e-3 and log abs 3e-3; the first 3 pairs alone must equal their
-   values inside the B=256 batch bit for bit;
+   rel 1e-3 and log abs 3e-3, and K2-K5 at Ly = 1500 (Lx != Ly, one block a
+   pair, a warp per 1024 columns; exp-space inputs whose values stay
+   finite); the first 3 pairs alone must equal their values inside the
+   batch bit for bit;
 7. BPLA path: ``bpla_kernel`` train on the corpus (K2), ``svm_tools train``,
    predict on the 40 held-out sequences, and ``--device cpu`` against
    ``--device cuda`` on 8 sequences within the 1.3e-3 band;
@@ -38,7 +56,8 @@ Phases (the first failure exits non-zero; nothing is caught):
    ``PairKernelEngine`` on the proteins (rank 22, so K5), which must agree
    with the LA path's Gram;
 11. K2-K5 times against their plain versions (CUDA events, plain, kernel,
-   kernel, plain) and the BPLA and LA Gram rates;
+   kernel, plain), at the paths' shapes and at Ly = 1500, and the BPLA and
+   LA Gram rates;
 12. K6 parity: the banded full stem kernel against its plain version at full
    width (n = 301, band 16, B = 16) on the config-3 generator of
    ``bench_full200.py`` (80-300 nt hairpins): the square case, lx != ly,
@@ -51,7 +70,8 @@ Phases (the first failure exits non-zero; nothing is caught):
    a level's scale must equal IEEE f32 division bit for bit where the
    quotient is normal and within one unit in the last place where it is
    subnormal (dividends 2^-149..2^20, scales 1e-30..1e12); one long pair
-   (two ~1,000 nt sequences, B = 2) within 1e-3 abs;
+   (two ~1,000 nt sequences, B = 2) within 1e-3 abs; band 40 (B = 8, two
+   opted-in shared-memory planes of 81 x 81) within 1e-3 abs, and its time;
 13. full stem path: ``stem_kernel -n -b 16`` train on the config-3 corpus
    (100 + 100 sequences), ``svm_tools train``, predict on 20 held-out
    sequences; K6's launch count must rise in train and in predict; then
@@ -66,8 +86,11 @@ Before each path every launch count is set to 0, and it is read just after.
 The line before the last lists every kernel with its launches on the main
 path, its error against its plain version, its time, its plain version's
 time and its bound: the larger of the bytes it must move over 3.35 TB/s and
-the operations this run's inputs need over 67 TFLOP/s f32 (the H100 SXM's
-published peaks).  The last line is ``{"ok": true, "device": {...}}``.
+the operations this run's inputs need over the peak of the unit that runs
+them, 67 TFLOP/s f32, 495 TFLOP/s TF32 (three passes for 3xTF32) or 989
+TFLOP/s bf16 (the H100 SXM's published peaks).  K1 has two entries, one a
+route: the cluster kernel in the main path's mode, "high", and the
+per-product kernel (f32).  The last line is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX.
 """
 
@@ -87,13 +110,20 @@ SEED = 0
 N_TRAIN = 100  # per class
 N_TEST = 20  # per class
 SEQ_LEN = 120
-KERNEL_RTOL = 1e-4
+KERNEL_RTOL = 1e-4  # every kernel mode against its plain version in the same mode
+# K1 in bf16 must also sit at least this many times nearer its plain bf16
+# version than plain f32, so that a kernel that skips or halves the rounding fails
+BF16_SEPARATION = 10.0
+JAX_HIGH_REL = 9.0e-4  # JAX "high" (3-pass bf16) against f32 (BASELINE.md)
+JAX_DEFAULT_REL = 6.1e-2  # JAX "default" (1-pass bf16) against f32 (BASELINE.md)
 CLI_BAND = 1.4e-2  # port-vs-plain Gram band (fold f32 deltas through the DAG)
 BPP_BAND = 5e-4  # f32 fold against f32 fold (tests/test_fold_goldens.py)
 LA_EXP_RTOL = 1e-3  # the LA kernels' gates (bench.py --paritycheck)
 LA_LOG_ATOL = 3e-3
 BPLA_BAND = 1.3e-3  # bpla_kernel cross-backend Gram band
 LA_BATCH = 256
+K1_BATCH = 256  # pairs of a K1 parity / timing batch, as the Gram engine gives them
+LONG_BATCH = 32  # pairs of the Ly = 1500 LA batches
 AMINO = "ARNDCQEGHILKMFPSTWYV"
 BPLA = (4.5, 0.11, -8.0, -0.75)  # alpha, beta, gap, ext (bpla_kernel defaults)
 PROT = (0.11, -10.0, -1.0)  # beta, gap, ext (la_kernel defaults)
@@ -109,6 +139,12 @@ K6_REFERENCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
 FULL_CPU_BAND = 1e-4  # stem_kernel --device cpu against --device cuda
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_F32 = 67e12  # H100 SXM f32 outside the tensor cores, operations/s
+PEAK_TF32 = 495e12  # H100 SXM TF32 tensor cores, dense
+PEAK_BF16 = 989e12  # H100 SXM bf16 tensor cores, dense
+# K1's product mode -> (the unit's peak, passes an operation takes on it)
+K1_PEAKS = {"f32": (PEAK_F32, 1), "3xtf32": (PEAK_TF32, 3), "bf16": (PEAK_BF16, 1)}
+LONG_LY = 1500  # the LA kernels past one warp's 1024 columns
+WIDE_BAND = 40  # K6 past its former limit of band 32
 # operations a cell needs, as each kernel's arithmetic counts them (a
 # transcendental, a division or a compare counts as one):
 LA_EXP_OPS = 12  # m = e(1 + a + bg g), the closure recurrence, g', the sum, exp
@@ -260,22 +296,46 @@ def stem_features(seqs: list[str], pad: int) -> dict:
     return {"codes": codes, "length": lens, "bp": bp}
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, peak: float = PEAK_F32) -> tuple[float, str]:
     """(least ms on the card, what bounds it) for moving ``nbytes`` once and
-    doing ``ops`` f32 operations."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / PEAK_F32
+    doing ``ops`` operations on a unit of ``peak`` operations/s."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES, ops / peak
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def k1_bound(args: list, max_iters: int) -> tuple[float, str]:
+def k1_bound(args: list, max_iters: int, mode: str = "f32") -> tuple[float, str]:
     """K1: per pair, min(iters, max_iters) iterations of four GEMMs
-    (M Vy^T, Vx (.), G Ay^T, Ax (.)), + L and * NS, then ux^T M uy."""
+    (M Vy^T, Vx (.), G Ay^T, Ax (.)), + L and * NS, then ux^T M uy.  The
+    products run on the mode's unit, 3xTF32 as three TF32 passes; the
+    elementwise work and the bilinear form on the f32 units."""
     ns, iters = args[0], args[-1]
     bsz, nx, ny = ns.shape
     trips = float(torch.clamp(iters, max=max_iters).sum())
-    ops = trips * (4.0 * nx * ny * (nx + ny) + 2.0 * nx * ny) + bsz * 2.0 * nx * ny
+    peak, passes = K1_PEAKS[mode]
+    products = trips * 4.0 * nx * ny * (nx + ny) * passes
+    elementwise = trips * 2.0 * nx * ny + bsz * 2.0 * nx * ny
     nbytes = 4.0 * bsz * (2 * nx * ny + 2 * nx * nx + 2 * ny * ny + nx + ny + 2)
-    return bound(nbytes, ops)
+    t_ops = products / peak + elementwise / PEAK_F32
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k1_random(bsz: int, nx: int, ny: int, max_iters: int, seed: int, dev) -> list:
+    """Random K1 operands whose fixed point stays bounded (each operator's
+    rows sum to about 0.75), with per-pair trips 0..max_iters."""
+    g = torch.Generator().manual_seed(seed)
+    mats = [torch.rand(bsz, nx, ny, generator=g), torch.rand(bsz, nx, nx, generator=g) * 1.5 / nx,
+            torch.rand(bsz, ny, ny, generator=g) * 1.5 / ny,
+            torch.rand(bsz, nx, nx, generator=g) * 1.5 / nx,
+            torch.rand(bsz, ny, ny, generator=g) * 1.5 / ny, torch.rand(bsz, nx, ny, generator=g)]
+    vecs = [torch.rand(bsz, nx, generator=g), torch.rand(bsz, ny, generator=g)]
+    trips = torch.randint(0, max_iters + 1, (bsz,), generator=g, dtype=torch.int32)
+    return [t.to(dev) for t in mats + vecs + [trips]]
+
+
+def k1_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest error relative to the value (floored at 1e-6 of the largest)."""
+    return float(((got - want).abs() / (want.abs() + 1e-6 * want.abs().max())).max())
 
 
 def la_bound(key: str, ops: list) -> tuple[float, str]:
@@ -365,10 +425,11 @@ def k6_feats() -> tuple[list[str], list[str], dict]:
     return full[:FULL_N], full[FULL_N:], stem_features(full[:FULL_N], FULL_PAD)
 
 
-def k6_parity(dev, feats: dict, rng: np.random.Generator) -> tuple[dict, list]:
+def k6_parity(dev, feats: dict, rng: np.random.Generator) -> tuple[dict, list, list]:
     """K6 against its plain version and the reference values on the cases of
-    :func:`k6_cases`, its division against IEEE division, and one long pair.
-    Returns (max abs error against the plain version, the lx != ly operands)."""
+    :func:`k6_cases`, its division against IEEE division, one long pair and
+    band 40.  Returns (max abs error against the plain version, the lx != ly
+    operands, the band-40 operands)."""
     from stem_kernel_torch.ops.full_stem_banded import (
         _div_scale, full_stem_banded_log, full_stem_banded_log_reference,
     )
@@ -443,7 +504,21 @@ def k6_parity(dev, feats: dict, rng: np.random.Generator) -> tuple[dict, list]:
     check(bool(torch.isfinite(got).all()) and err <= K6_ATOL,
           "K6: the long pair disagrees with its plain version")
     report["max_abs_err"] = max(report["max_abs_err"], err)
-    return report, cases[1][1]
+
+    # band 40: two (81, 81) planes, past the 48 KB a block gets without opting in
+    n_ex = len(feats["length"])
+    xw, yw = pick(feats, rng.integers(0, n_ex, 8), dev), pick(feats, rng.integers(0, n_ex, 8), dev)
+    wops = [xw["codes"], yw["codes"], xw["length"], yw["length"], xw["bp"], yw["bp"]]
+    got = full_stem_banded_log(*wops, *FULL_WEIGHTS, band=WIDE_BAND)
+    want = full_stem_banded_log_reference(*wops, *FULL_WEIGHTS, band=WIDE_BAND)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    print(f"K6 band {WIDE_BAND}: B=8 n={wops[0].shape[1]}, log K {float(want.min()):.2f}.."
+          f"{float(want.max()):.2f}: max abs {err:.3e} (abs limit {K6_ATOL})")
+    check(bool(torch.isfinite(got).all()) and err <= K6_ATOL,
+          f"K6: band {WIDE_BAND} disagrees with its plain version")
+    report["max_abs_err"] = max(report["max_abs_err"], err)
+    return report, cases[1][1], wops
 
 
 def k6_values(path: str) -> int:
@@ -490,12 +565,14 @@ def main() -> int:
     from stem_kernel_torch.models.featurize import bpla_features
     from stem_kernel_torch.models.stem_kernel import fixed_point_operands, subst_co_table
     from stem_kernel_torch.ops import la
-    from stem_kernel_torch.ops._build import build
+    from stem_kernel_torch.ops._build import BUILD_DIR, PTXAS_LOG, build
     from stem_kernel_torch.ops.full_stem_banded import (
         full_stem_banded_log, full_stem_banded_log_reference,
     )
     from stem_kernel_torch.ops.stem_fixed_point import (
-        stem_fixed_point, stem_fixed_point_reference,
+        MAX_CLUSTER_NODES, MODES, cluster_info, cluster_kernel, cluster_route,
+        per_product_route, stem_fixed_point,
+        stem_fixed_point_reference,
     )
     from stem_kernel_torch.utils.shuffle import dinucleotide_shuffle
 
@@ -505,6 +582,7 @@ def main() -> int:
     def reset_counts() -> None:
         for w in wrappers.values():
             w.launches = 0
+        stem_fixed_point.launches_wide = 0
 
     def counts() -> dict[str, int]:
         return {k: w.launches for k, w in wrappers.items()}
@@ -524,6 +602,14 @@ def main() -> int:
     # ---- 2. build ----
     _, build_s = build()
     print(f"build: {build_s:.1f} s")
+    # K1's cluster kernels: <mode, m16 count>, mode 0 f32, 1 3xTF32, 2 bf16
+    log = (BUILD_DIR / PTXAS_LOG).read_text().split("Compiling entry function")
+    for entry in log[1:]:
+        if "fixed_point_clusterILi" in entry.splitlines()[0]:
+            mode_mt = entry.split("fixed_point_clusterILi")[1].split("EEE")[0].replace("ELi", ", ")
+            use = [ln.split(":")[-1].strip() if "Used" in ln else ln.strip()
+                   for ln in entry.splitlines() if "spill" in ln or "Used" in ln]
+            print(f"ptxas, K1 cluster kernel <{mode_mt}>: {'; '.join(use)}")
 
     # ---- data ----
     rng = np.random.default_rng(SEED)
@@ -545,33 +631,78 @@ def main() -> int:
     by_size = sorted(buckets, key=lambda b: len(b[0]), reverse=True)
     co = torch.as_tensor(subst_co_table(cfg.beta), device=dev)
     pair_rng = np.random.default_rng(SEED + 1)
-    cases = []
-    for (idx_x, fx, it_x), (idx_y, fy, it_y) in [(by_size[0], by_size[0])] + (
-            [(by_size[0], by_size[1])] if len(by_size) > 1 else []):
-        bix = torch.as_tensor(pair_rng.integers(0, len(idx_x), 256), device=dev)
-        biy = torch.as_tensor(pair_rng.integers(0, len(idx_y), 256), device=dev)
+
+    def corpus_block(bx, by):
+        """(operands, iters) of K1_BATCH random pairs of bucket bx x bucket by."""
+        (idx_x, fx, it_x), (idx_y, fy, it_y) = bx, by
+        bix = torch.as_tensor(pair_rng.integers(0, len(idx_x), K1_BATCH), device=dev)
+        biy = torch.as_tensor(pair_rng.integers(0, len(idx_y), K1_BATCH), device=dev)
         x = {k: v.index_select(0, bix) for k, v in fx.items()}
         y = {k: v.index_select(0, biy) for k, v in fy.items()}
         iters = max(it_x, it_y)
-        cases.append((fixed_point_operands(x, y, co, iters=iters, len_band=cfg.len_band),
-                      iters))
-    max_abs = 0.0
-    k1_rel = 0.0
-    for case_args, case_iters in cases:
-        got = stem_fixed_point(*case_args, max_iters=case_iters)
-        want = stem_fixed_point_reference(*case_args, max_iters=case_iters)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), "kernel output not finite")
-        err = (got - want).abs()
-        rel = float((err / (want.abs() + 1e-6 * want.abs().max())).max())
-        max_abs = max(max_abs, float(err.max()))
-        k1_rel = max(k1_rel, rel)
+        return fixed_point_operands(x, y, co, iters=iters, len_band=cfg.len_band), iters
+
+    # the largest bucket against itself, against the next largest, and the
+    # smallest bucket against the largest (both Nx != Ny, as the Gram's
+    # cross-bucket blocks run them)
+    cases = []
+    by_nodes = sorted(buckets, key=lambda b: b[1]["V"].shape[1])
+    blocks = [(by_size[0], by_size[0])] + ([(by_size[0], by_size[1])] if len(by_size) > 1 else [])
+    if by_nodes[0] is not by_size[0]:
+        blocks.append((by_nodes[0], by_size[0]))
+    for bx, by in blocks:
+        cases.append((f"corpus B={K1_BATCH} Nx={bx[1]['V'].shape[1]} Ny={by[1]['V'].shape[1]}",
+                      *corpus_block(bx, by)))
+    # shapes the corpus blocks above may not reach: one CTA a pair, a
+    # rectangular padded cluster in every mode, 256 nodes, and past 256
+    for bsz, nx, ny, seed in ((64, 64, 64, 11), (64, 112, 48, 14), (64, 256, 256, 12),
+                              (16, 320, 288, 13)):
+        cases.append((f"random B={bsz} Nx={nx} Ny={ny}", k1_random(bsz, nx, ny, 20, seed, dev), 20))
+    report = {"K1": {"max_abs_err": 0.0, "max_rel_err": 0.0},
+              "K1w": {"max_abs_err": 0.0, "max_rel_err": 0.0}}
+    k1_modes = {}  # mode -> (max rel against its plain version, max rel against f32)
+    for label, case_args, case_iters in cases:
+        f32 = stem_fixed_point_reference(*case_args, max_iters=case_iters)
         _, nx, ny = case_args[0].shape
-        print(f"K1 parity: B=256 Nx={nx} Ny={ny} max_iters={case_iters} trip counts "
-              f"{int(case_args[-1].min())}..{int(case_args[-1].max())}: max abs "
-              f"{float(err.max()):.3e} max rel {rel:.3e} (limit {KERNEL_RTOL})")
-        check(rel <= KERNEL_RTOL, f"kernel disagrees with its plain version: rel {rel}")
-    args, iters = cases[0]
+        for prec, mode in MODES.items():
+            cluster = cluster_route(nx, ny, prec)
+            route = "cluster" if cluster else "per-product"
+            plain_mode = mode if cluster else "f32"
+            before = (stem_fixed_point.launches, stem_fixed_point.launches_wide)
+            got = stem_fixed_point(*case_args, max_iters=case_iters, precision=prec)
+            torch.cuda.synchronize()
+            after = (stem_fixed_point.launches, stem_fixed_point.launches_wide)
+            check(after[0 if cluster else 1] == before[0 if cluster else 1] + 1,
+                  f"K1 {label}: the {route} route did not run")
+            want = stem_fixed_point_reference(*case_args, max_iters=case_iters, mode=plain_mode)
+            check(bool(torch.isfinite(got).all()), f"K1 {label} {prec}: kernel output not finite")
+            rel, rel_f32 = k1_rel(got, want), k1_rel(got, f32)
+            zero = bool((got[case_args[-1] == 0] == 0).all())
+            print(f"K1 parity, {label}, {route} route, {prec} ({plain_mode}): trip counts "
+                  f"{int(case_args[-1].min())}..{int(case_args[-1].max())}: max abs "
+                  f"{float((got - want).abs().max()):.3e} max rel {rel:.3e} against the plain "
+                  f"version in {plain_mode} (limit {KERNEL_RTOL}); {rel_f32:.3e} against plain "
+                  f"f32; 0-trip pairs give 0: {zero}")
+            check(rel <= KERNEL_RTOL, f"K1 {label} {prec}: kernel disagrees with its plain version")
+            check(zero, f"K1 {label} {prec}: a pair with 0 trips is not 0")
+            if plain_mode == "bf16":
+                check(rel_f32 > 0 and rel_f32 >= BF16_SEPARATION * rel,
+                      f"K1 {label}: the bf16 kernel is not {BF16_SEPARATION}x nearer plain bf16 "
+                      f"({rel:.3e}) than plain f32 ({rel_f32:.3e})")
+            if prec == "high":
+                check(rel_f32 <= JAX_HIGH_REL, f"K1 {label}: high is {rel_f32} from f32")
+            if prec == "high" or not cluster:
+                r = report["K1" if cluster else "K1w"]
+                r["max_abs_err"] = max(r["max_abs_err"], float((got - want).abs().max()))
+                r["max_rel_err"] = max(r["max_rel_err"], rel)
+            if cluster:
+                old = k1_modes.get(prec, (0.0, 0.0))
+                k1_modes[prec] = (max(old[0], rel), max(old[1], rel_f32))
+    for prec, (rel, rel_f32) in k1_modes.items():
+        jax_rel = {"highest": 0.0, "high": JAX_HIGH_REL, "default": JAX_DEFAULT_REL}[prec]
+        print(f"K1 cluster route, {prec} ({MODES[prec]}): max rel {rel:.3e} against its plain "
+              f"version, {rel_f32:.3e} against plain f32 (JAX {prec}: {jax_rel} against f32)")
+    _, args, iters = cases[0]
     n_nodes = args[0].shape[1]
 
     tmp_dir = tempfile.TemporaryDirectory()
@@ -591,6 +722,7 @@ def main() -> int:
                            "+1", p("pos.fa"), "-1", p("neg.fa")])
     train_s = time.perf_counter() - t0
     train_launches = stem_fixed_point.launches
+    train_wide = stem_fixed_point.launches_wide
     svm_tools.train_main([p("km.dat"), p("km.model")])
     t0 = time.perf_counter()
     stem_kernel_lite.main(["--device", "cuda", "-n", p("test.dat"),
@@ -599,7 +731,7 @@ def main() -> int:
                            "--test", "+1", p("tpos.fa"), "-1", p("tneg.fa")])
     predict_s = time.perf_counter() - t0
     stem_counts = counts()
-    launches = stem_counts["K1"]
+    launches, wide = stem_counts["K1"], stem_fixed_point.launches_wide
     labels, g = read_precomputed(p("km.dat"))
 
     # small-input reference: the same flow on the plain versions (CPU)
@@ -617,9 +749,13 @@ def main() -> int:
 
     n = 2 * N_TRAIN
     train_labels = ["+1"] * N_TRAIN + ["-1"] * N_TRAIN
-    print(f"stem path: train Gram {g.shape}, {n * (n + 1) // 2} pairs, K1 launches "
-          f"{train_launches} (train) {launches} (train + predict); all counts {stem_counts}")
-    check(launches > 0 and train_launches > 0, "the stem path never launched K1")
+    print(f"stem path (--precision {cfg.precision}, K1 in {MODES[cfg.precision]}): train Gram "
+          f"{g.shape}, {n * (n + 1) // 2} pairs, K1 launches {train_launches} (train) "
+          f"{launches} (train + predict), per-product route {train_wide} (train) "
+          f"{wide} (train + predict); all counts {stem_counts}")
+    check(launches > 0 and train_launches > 0, "the stem path never launched K1's cluster kernel")
+    check(wide > 0, "the stem path never ran K1's per-product route")
+    report["K1w"]["launches"] = wide
     gram_checks("stem", g, n, labels, train_labels)
     auc = predictions(p("pred.txt"), 2 * N_TEST, "stem")
     small_diff = float(np.abs(g_cuda - g_cpu).max())
@@ -630,8 +766,70 @@ def main() -> int:
     check(bpp_diff <= BPP_BAND, "cuda and cpu folds disagree on the small input")
 
     # ---- 5. times ----
-    k_ms, p_ms = timed_pair(lambda: stem_fixed_point(*args, max_iters=iters),
-                            lambda: stem_fixed_point_reference(*args, max_iters=iters), 5)
+    # each mode against the plain f32 version, in turns (plain, kernel,
+    # kernel, plain), on the square corpus batch
+    k1_times = {}
+    for prec, mode in MODES.items():
+        k_ms, p_ms = timed_pair(
+            lambda: stem_fixed_point(*args, max_iters=iters, precision=prec),  # noqa: B023
+            lambda: stem_fixed_point_reference(*args, max_iters=iters), 5)
+        b_ms, b_by = k1_bound(args, iters, mode)
+        k1_times[prec] = (k_ms, p_ms, b_ms, b_by)
+        geo = cluster_info(args[0].shape[1], args[0].shape[2], prec)
+        print(f"times on {smi}: K1 {prec} ({mode}) {k_ms:.3f} ms vs plain f32 {p_ms:.3f} ms, "
+              f"bound {b_ms:.4f} ms by {b_by} on its unit ({100 * b_ms / k_ms:.1f}% of the "
+              f"bound) (B={K1_BATCH} N={n_nodes} max_iters={iters}, trips "
+              f"{int(args[-1].min())}..{int(args[-1].max())}); one launch, clusters of "
+              f"{geo['ctas']} CTAs, {geo['smem_bytes']} B shared memory a CTA, "
+              f"{geo['active_clusters']} clusters active at once")
+    # every block shape of the stem Gram, in the Gram's batches: the cluster
+    # kernel in each mode, where it can run (up to 128 nodes), beside the
+    # per-product kernel (f32) on the same batch, and the route the wrapper
+    # takes (cluster_route).  These times place cluster_route's cut-over.
+    wide_pick = None  # (launches on the path, operands, iters) of the busiest per-product shape
+    for i, bx in enumerate(by_nodes):
+        for by in by_nodes[i:]:
+            blk, blk_iters = corpus_block(bx, by)
+            _, nx, ny = blk[0].shape
+            nb = len(bx[0]) * (len(bx[0]) + 1) // 2 if by is bx else len(bx[0]) * len(by[0])
+            batches = -(-nb // K1_BATCH)  # the train Gram's launches at this shape
+            it = torch.clamp(blk[-1], max=blk_iters).contiguous()
+            pp = lambda: per_product_route(*blk[:-1], it, max_iters=blk_iters)  # noqa: B023,E731
+            parts, geo = [], None
+            for prec, mode in MODES.items():
+                route = "cluster" if cluster_route(nx, ny, prec) else "per-product"
+                if max(nx, ny) > MAX_CLUSTER_NODES:
+                    parts.append(f"{prec} ({mode}): {route}")
+                    continue
+                k_ms, pp_ms = timed_pair(
+                    lambda: cluster_kernel(*blk[:-1], it, precision=prec),  # noqa: B023
+                    pp, 3)
+                parts.append(f"{prec} ({mode}): cluster {k_ms:.3f} ms vs per-product "
+                             f"{pp_ms:.3f} ms, the wrapper takes {route}")
+                geo = geo or cluster_info(nx, ny, prec)
+            if not cluster_route(nx, ny, "high"):  # the main path's mode
+                pp()
+                parts.append(f"per-product kernel {cuda_ms(pp, 2):.3f} ms (f32)")
+                if wide_pick is None or batches > wide_pick[0]:
+                    wide_pick = (batches, blk, blk_iters)
+            clusters = (f"; clusters of {geo['ctas']} CTAs, {geo['active_clusters']} active at "
+                        f"once" if geo else "")
+            print(f"times on {smi}: K1 block Nx={nx} Ny={ny} (B={K1_BATCH}, trips "
+                  f"{int(blk[-1].min())}..{int(blk[-1].max())}, {batches} train launches"
+                  f"{clusters}): {'; '.join(parts)}")
+    # the per-product route at the shape that takes it most often on the path
+    _, w_args, w_iters = wide_pick
+    w_it = torch.clamp(w_args[-1], max=w_iters).contiguous()
+    w_ms, w_plain = timed_pair(
+        lambda: per_product_route(*w_args[:-1], w_it, max_iters=w_iters),
+        lambda: stem_fixed_point_reference(*w_args, max_iters=w_iters), 2)
+    w_bound, w_by = k1_bound(w_args, w_iters, "f32")
+    _, nx, ny = w_args[0].shape
+    print(f"times on {smi}: K1 per-product route {w_ms:.3f} ms vs plain f32 {w_plain:.3f} ms, "
+          f"bound {w_bound:.4f} ms by {w_by} (B={K1_BATCH} Nx={nx} Ny={ny}, "
+          f"{4 * w_iters + 1} launches a call)")
+    report["K1w"].update(ms=w_ms, plain_ms=w_plain, bound_ms=w_bound, bound_by=w_by,
+                         mode=f"f32 for every name, timed at Nx={nx} Ny={ny}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fold_sequences(train, cfg.bp_opts, device=dev)
@@ -643,13 +841,12 @@ def main() -> int:
     torch.cuda.synchronize()
     gram_s = time.perf_counter() - t0
     n_pairs = n * (n + 1) // 2
-    print(f"times on {smi}: K1 {k_ms:.3f} ms vs plain {p_ms:.3f} ms "
-          f"(B=256 N={n_nodes} max_iters={iters}); fold {len(train) / fold_s:.1f} seqs/s; "
-          f"Gram {n_pairs / gram_s:.1f} pairs/s ({gram_s:.2f} s); train flow {train_s:.2f} s; "
-          f"predict flow {2 * N_TEST / predict_s:.2f} rows/s ({predict_s:.2f} s)")
-    k1_ms, k1_by = k1_bound(args, iters)
-    report = {"K1": {"max_abs_err": max_abs, "max_rel_err": k1_rel, "ms": k_ms, "plain_ms": p_ms,
-                     "launches": launches, "bound_ms": k1_ms, "bound_by": k1_by}}
+    print(f"times on {smi}: fold {len(train) / fold_s:.1f} seqs/s; Gram (precision "
+          f"{cfg.precision}) {n_pairs / gram_s:.1f} pairs/s ({gram_s:.2f} s); train flow "
+          f"{train_s:.2f} s; predict flow {2 * N_TEST / predict_s:.2f} rows/s ({predict_s:.2f} s)")
+    k_ms, p_ms, b_ms, b_by = k1_times["high"]  # the main path's mode
+    report["K1"].update(ms=k_ms, plain_ms=p_ms, launches=launches, bound_ms=b_ms, bound_by=b_by,
+                        mode="high (3xTF32)")
 
     # ---- 6. LA parity (K2-K5) at the paths' shapes ----
     alpha, beta, gap, ext = BPLA
@@ -680,6 +877,23 @@ def main() -> int:
     aa_sq, aa_rect = batch(aa_train, aa_train), batch(aa_train, aa_short)
     big = random_profiles(rng, LA_BATCH, 400, 400)
     big = pick(big, np.arange(LA_BATCH), dev)
+    # Ly = 1500 > 1024: one block a pair; exp-space operands low enough to stay finite
+    long_rng = np.random.default_rng(SEED + 5)
+    lb = np.arange(LONG_BATCH)
+    long_x = pick(random_profiles(long_rng, LONG_BATCH, 200, 400), lb, dev)
+    long_y = pick(random_profiles(long_rng, LONG_BATCH, 1100, LONG_LY), lb, dev)
+    long_s = [torch.as_tensor(long_rng.uniform(-8.0, -3.0, (LONG_BATCH, 60, LONG_LY))
+                              .astype(np.float32), device=dev),
+              torch.as_tensor(long_rng.integers(40, 61, LONG_BATCH).astype(np.int32), device=dev),
+              torch.as_tensor(long_rng.integers(1100, LONG_LY + 1, LONG_BATCH).astype(np.int32),
+                              device=dev)]
+    # K3 at Ly = 1500: rank-6 factors whose third slot gives every cell a
+    # score of -8..-3 (as long_s), so that exp space stays finite
+    long_f = [long_rng.normal(size=(LONG_BATCH, 60, 6)) * 0.3,
+              long_rng.normal(size=(LONG_BATCH, LONG_LY, 6)) * 0.3]
+    long_f[0][:, :, 2] = -1.0
+    long_f[1][:, :, 2] = long_rng.uniform(3.0 / BPLA[1], 8.0 / BPLA[1], (LONG_BATCH, LONG_LY))
+    long_f = [torch.as_tensor(f.astype(np.float32), device=dev) for f in long_f] + long_s[1:]
 
     def factored(xy):
         x, y = xy
@@ -708,6 +922,8 @@ def main() -> int:
          factored(rna_rect)),
         ("K2", "random factors L=400", fac(la.la_log_factored),
          fac(la.la_log_factored_reference), factored((big, big))),
+        ("K2", f"random factors Lx 200-400, Ly={LONG_LY}", fac(la.la_log_factored),
+         fac(la.la_log_factored_reference), factored((long_x, long_y))),
         ("K3", "random profiles", fac(la.la_exp_factored), fac(la.la_exp_factored_reference),
          factored(prof_sq)),
         ("K3", "random profiles rect", fac(la.la_exp_factored),
@@ -718,6 +934,12 @@ def main() -> int:
          protein(aa_rect)),
         ("K4", "affine, random profiles", aff_exp, aff_plain(la.la_exp_reference),
          affine(prof_rect)),
+        ("K3", f"factors, scores -8..-3, Lx 40-60, Ly={LONG_LY}", fac(la.la_exp_factored),
+         fac(la.la_exp_factored_reference), long_f),
+        ("K4", f"scores -8..-3, Lx 40-60, Ly={LONG_LY}", mat(la.la_exp), mat(la.la_exp_reference),
+         long_s),
+        ("K5", f"scores -8..-3, Lx 40-60, Ly={LONG_LY}", mat(la.la_log), mat(la.la_log_reference),
+         long_s),
         ("K5", "BLOSUM62 proteins", mat(la.la_log_auto), mat(la.la_log_reference),
          protein(aa_sq)),
         ("K5", "BLOSUM62 proteins rect", mat(la.la_log_auto), mat(la.la_log_reference),
@@ -855,6 +1077,18 @@ def main() -> int:
         report[key].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
         print(f"times on {smi}: {key} {ms:.4f} ms vs plain {plain_ms:.3f} ms, bound "
               f"{bound_ms:.4f} ms by {bound_by} ({dims(key, ops)})")
+    long_timing = {
+        "K2": (fac(la.la_log_factored), fac(la.la_log_factored_reference),
+               factored((long_x, long_y))),
+        "K3": (fac(la.la_exp_factored), fac(la.la_exp_factored_reference), long_f),
+        "K4": (mat(la.la_exp), mat(la.la_exp_reference), long_s),
+        "K5": (mat(la.la_log), mat(la.la_log_reference), long_s),
+    }
+    for key, (kernel_fn, plain_fn, ops) in long_timing.items():
+        ms, plain_ms = timed_pair(lambda: kernel_fn(*ops), lambda: plain_fn(*ops), 2)
+        bound_ms, bound_by = la_bound(key, ops)
+        print(f"times on {smi}: {key} at Ly={LONG_LY} {ms:.4f} ms vs plain {plain_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms by {bound_by} ({dims(key, ops)}, one block a pair)")
     rates = {}
     for label, fn, feats, log_values in (
             ("bpla_kernel", kern.log_value, rna_feats, True),
@@ -874,7 +1108,7 @@ def main() -> int:
 
     # ---- 12. K6 parity at full width (n = 301, band 16, B = 16) ----
     full_train, full_test, full_feats = k6_feats()
-    report["K6"], k6_ops = k6_parity(dev, full_feats, np.random.default_rng(SEED + 2))
+    report["K6"], k6_ops, k6_wide = k6_parity(dev, full_feats, np.random.default_rng(SEED + 2))
 
     # ---- 13. full stem path: stem_kernel -n -b 16 train, svm train, predict ----
     tmp_dir = tempfile.TemporaryDirectory()
@@ -947,6 +1181,12 @@ def main() -> int:
         lambda: full_stem_banded_log_reference(*k6_ops, *FULL_WEIGHTS, band=FULL_BAND), 3)
     k6_bound_ms, k6_by = k6_bound(k6_ops, FULL_BAND)
     report["K6"].update(ms=k6_ms, plain_ms=k6_plain_ms, bound_ms=k6_bound_ms, bound_by=k6_by)
+    w_ms, w_plain_ms = timed_pair(
+        lambda: full_stem_banded_log(*k6_wide, *FULL_WEIGHTS, band=WIDE_BAND),
+        lambda: full_stem_banded_log_reference(*k6_wide, *FULL_WEIGHTS, band=WIDE_BAND), 1)
+    w_bound_ms, w_by = k6_bound(k6_wide, WIDE_BAND)
+    print(f"times on {smi}: K6 band {WIDE_BAND} {w_ms:.3f} ms vs plain {w_plain_ms:.3f} ms, bound "
+          f"{w_bound_ms:.4f} ms by {w_by} (B=8 n={k6_wide[0].shape[1]})")
     cli_feats = stem_features(full_train, max(len(x) for x in full_train) + 1)
 
     def banded_fn(x, y):
@@ -971,6 +1211,8 @@ def main() -> int:
     meta = {
         "K1": ("stem_fixed_point", "stem_kernel_torch/csrc/stem_fixed_point.cu",
                "stem_kernel_tpu/ops/pallas_stem.py:119"),
+        "K1w": ("stem_fixed_point_per_product", "stem_kernel_torch/csrc/stem_fixed_point.cu",
+                "stem_kernel_tpu/ops/pallas_stem.py:119"),
         "K2": ("la_log_factored", "stem_kernel_torch/csrc/la_dp.cu",
                "stem_kernel_tpu/ops/pallas_la.py:604"),
         "K3": ("la_exp_factored", "stem_kernel_torch/csrc/la_dp.cu",
@@ -983,11 +1225,12 @@ def main() -> int:
                "stem_kernel_tpu/ops/pallas_full_stem.py:426"),
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    extra = ("max_rel_err", "mode")
     # no single PyTorch call computes any of these functions: library_ms is null
     print(json.dumps({"kernels": [
         {"name": nm, "route": "cuda", "source": src, "replaces": rep,
          **{f: report[k][f] for f in keys}, "library_ms": None,
-         **({"max_rel_err": report[k]["max_rel_err"]} if "max_rel_err" in report[k] else {})}
+         **{f: report[k][f] for f in extra if f in report[k]}}
         for k, (nm, src, rep) in meta.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -44,6 +44,17 @@
 // the card fills only with many pairs in flight: 4 pairs a block.  A pair's
 // value depends on its own operands only, never on its batch.
 //
+// Ly > 1024: one pair a block of ceil(Ly / 1024) warps (at most 32, the
+// largest block that launches: Ly <= 32768), each warp on a 1024-column
+// chunk, 32 columns a lane.  The closure's z is a first-order recurrence,
+// so warp w's carry-in is the earlier warps' chunk-end values (carry 0),
+// each scaled by be^1024 per warp in between: the warps pass them, and
+// their last columns' m and z, through shared memory, and each warp fixes
+// up its own chunk.  Row maxima and sums become block reductions, taken in
+// warp order.  Three barriers a row (two in exp space).  At 1024 threads a
+// block the compiler keeps 64 registers a thread, so the 32-column chunks
+// spill to local memory; the route is for rare long inputs, not for speed.
+//
 // Numerics: expf/logf/log1pf (no fast-math intrinsics, no flush to zero,
 // as in the plain torch version), and -1e30 for an empty log cell.
 //
@@ -58,6 +69,12 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr float NEG = -1e30f;
 constexpr float TINY = 1.17549435e-38f;  // smallest normal f32
 constexpr int MAX_RANK = 6;
+// wide blocks (Ly > 1024): one pair a block, WIDE_C columns a lane, a warp
+// per WARP_COLS columns, at most WIDE_WARPS warps (1024 threads, the largest
+// block that launches), so Ly <= 32768
+constexpr int WIDE_C = 32;
+constexpr int WARP_COLS = 32 * WIDE_C;
+constexpr int WIDE_WARPS = 32;
 
 __device__ __forceinline__ float logaddexp(float x, float y) {
   const float hi = fmaxf(x, y), lo = fminf(x, y);
@@ -76,17 +93,16 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// an = v @ Tu for one row held by the warp, lane chunks of C columns.
-// beC = be^C.  Column 0 of Tu is empty, so an[0] of lane 0 is 0.
+// z along a lane's chunk with carry 0: z[c] = be z[c-1] + v[c]
 template <int C>
-__device__ __forceinline__ void closure_row(const float (&v)[C], float (&an)[C],
-                                            float bg, float be, float beC, int lane) {
-  float z[C];
+__device__ __forceinline__ void chunk_scan(const float (&v)[C], float (&z)[C], float be) {
   z[0] = v[0];
 #pragma unroll
   for (int c = 1; c < C; ++c) z[c] = fmaf(be, z[c - 1], v[c]);
-  // inclusive scan over lanes of x_l = be^C * x_(l-1) + z_l[C-1]
-  float x = z[C - 1];
+}
+
+// inclusive scan over lanes of x_l = be^C x_(l-1) + z_l[C-1], carry 0 at lane 0
+__device__ __forceinline__ float lane_scan(float x, float beC, int lane) {
   float p = beC;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
@@ -94,22 +110,98 @@ __device__ __forceinline__ void closure_row(const float (&v)[C], float (&an)[C],
     if (lane >= d) x = fmaf(p, y, x);
     p *= p;
   }
-  float zin = __shfl_up_sync(FULL, x, 1);  // z at the column before the chunk
-  if (lane == 0) zin = 0.f;
+  return x;
+}
+
+// z += be^(c+1) zin, zin being z at the column before the chunk
+template <int C>
+__device__ __forceinline__ void add_carry(float (&z)[C], float be, float zin) {
   float pw = be;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
     z[c] = fmaf(pw, zin, z[c]);
     pw *= be;
   }
-  float m_prev = __shfl_up_sync(FULL, v[C - 1], 1);
-  float z_prev = __shfl_up_sync(FULL, z[C - 1], 1);
-  float z_prev2 = __shfl_up_sync(FULL, z[C - 2], 1);
-  if (lane == 0) m_prev = z_prev = z_prev2 = 0.f;
+}
+
+// an = v @ Tu from the chunk and the columns before it (m_prev = v, z_prev, z_prev2)
+template <int C>
+__device__ __forceinline__ void closure_an(const float (&v)[C], const float (&z)[C], float (&an)[C],
+                                           float bg, float m_prev, float z_prev, float z_prev2) {
   an[0] = fmaf(bg, z_prev2, m_prev);
   an[1] = fmaf(bg, z_prev, v[0]);
 #pragma unroll
   for (int c = 2; c < C; ++c) an[c] = fmaf(bg, z[c - 2], v[c - 1]);
+}
+
+// an = v @ Tu for one row held by the warp, lane chunks of C columns.
+// beC = be^C.  Column 0 of Tu is empty, so an[0] of lane 0 is 0.
+template <int C>
+__device__ __forceinline__ void closure_row(const float (&v)[C], float (&an)[C],
+                                            float bg, float be, float beC, int lane) {
+  float z[C];
+  chunk_scan<C>(v, z, be);
+  const float x = lane_scan(z[C - 1], beC, lane);
+  float zin = __shfl_up_sync(FULL, x, 1);  // z at the column before the chunk
+  if (lane == 0) zin = 0.f;
+  add_carry<C>(z, be, zin);
+  float m_prev = __shfl_up_sync(FULL, v[C - 1], 1);
+  float z_prev = __shfl_up_sync(FULL, z[C - 1], 1);
+  float z_prev2 = __shfl_up_sync(FULL, z[C - 2], 1);
+  if (lane == 0) m_prev = z_prev = z_prev2 = 0.f;
+  closure_an<C>(v, z, an, bg, m_prev, z_prev, z_prev2);
+}
+
+// Shared memory of a wide block (one pair, up to WIDE_WARPS warps of
+// WARP_COLS columns each): the warps' row maxima and sums, their chunk-end
+// z with carry 0, and their last column's m, z and the z before it.
+struct Wide {
+  float red[WIDE_WARPS], sum[WIDE_WARPS], end[WIDE_WARPS], edge[WIDE_WARPS][3];
+};
+
+// closure_row across the warps of a wide block.  The warps' carries are
+// joined through shared memory: warp w's carry-in is z at the last column of
+// warp w-1, sum over w' < w of end[w'] be^(WARP_COLS (w-1-w')); each warp then
+// fixes up its own chunk.  Two barriers.  rs: this warp's row sum, returned
+// as the block's (summed in warp order).
+template <int C>
+__device__ __forceinline__ void closure_row_wide(const float (&v)[C], float (&an)[C], float bg,
+                                                 float be, float beC, float beW, float beLane,
+                                                 int lane, int warp, int nwarps, Wide& sh,
+                                                 float& rs) {
+  float z[C];
+  chunk_scan<C>(v, z, be);
+  const float x = lane_scan(z[C - 1], beC, lane);
+  if (lane == 31) {
+    sh.end[warp] = x;
+    sh.sum[warp] = rs;
+  }
+  __syncthreads();
+  float zw = 0.f;  // z at the column before this warp's chunk
+  for (int q = 0; q < warp; ++q) zw = fmaf(beW, zw, sh.end[q]);
+  float total = 0.f;
+  for (int q = 0; q < nwarps; ++q) total += sh.sum[q];
+  rs = total;
+  float zin = __shfl_up_sync(FULL, x, 1);
+  if (lane == 0) zin = 0.f;
+  zin = fmaf(beLane, zw, zin);
+  add_carry<C>(z, be, zin);
+  float m_prev = __shfl_up_sync(FULL, v[C - 1], 1);
+  float z_prev = __shfl_up_sync(FULL, z[C - 1], 1);
+  float z_prev2 = __shfl_up_sync(FULL, z[C - 2], 1);
+  if (lane == 31) {
+    sh.edge[warp][0] = v[C - 1];
+    sh.edge[warp][1] = z[C - 1];
+    sh.edge[warp][2] = z[C - 2];
+  }
+  __syncthreads();
+  if (lane == 0) {
+    const bool first = warp == 0;
+    m_prev = first ? 0.f : sh.edge[warp - 1][0];
+    z_prev = first ? 0.f : sh.edge[warp - 1][1];
+    z_prev2 = first ? 0.f : sh.edge[warp - 1][2];
+  }
+  closure_an<C>(v, z, an, bg, m_prev, z_prev, z_prev2);
 }
 
 struct Params {
@@ -118,23 +210,32 @@ struct Params {
 
 // FACTORED: p0 = fx (B, max_lx, rank), p1 = fy (B, max_ly, rank).
 // Otherwise: p0 = s0 (B, max_lx, max_ly), p1 = s1 of the same shape or null.
-template <int C, bool LOG, bool FACTORED>
-__global__ void __launch_bounds__(32 * WARPS)
+// WIDE: one pair a block of ceil(max_ly / WARP_COLS) warps (C = WIDE_C);
+// otherwise one pair a warp, WARPS pairs a block.
+template <int C, bool LOG, bool FACTORED, bool WIDE>
+__global__ void __launch_bounds__(WIDE ? 32 * WIDE_WARPS : 32 * WARPS)
 la_dp(const float* __restrict__ p0, const float* __restrict__ p1,
       const int* __restrict__ lx, const int* __restrict__ ly,
       int batch, int max_lx, int max_ly, int rank, Params prm,
       float* __restrict__ out) {
-  const int lane = threadIdx.x % 32;
-  const int b = blockIdx.x * WARPS + threadIdx.x / 32;
-  if (b >= batch) return;  // the whole warp leaves together
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int nwarps = blockDim.x / 32;
+  const int b = WIDE ? blockIdx.x : blockIdx.x * WARPS + warp;
+  if (b >= batch) return;  // the whole warp (a wide block: the whole block) leaves together
   const int nx = min(max(lx[b], 0), max_lx);
   const int ny = min(max(ly[b], 0), max_ly);
-  const int j0 = lane * C;
+  const int j0 = (WIDE ? warp * WARP_COLS : 0) + lane * C;
 
   float beC = 1.f;
 #pragma unroll
   for (int c = 0; c < C; ++c) beC *= prm.be;
   const float ab = prm.alpha * prm.beta;
+  __shared__ Wide sh;  // used by wide blocks only
+  float beW = 1.f, beLane = 1.f;  // be^WARP_COLS, be^(lane C)
+  if (WIDE) {
+    for (int q = 0; q < 32; ++q) beW *= beC;
+    for (int q = 0; q < lane; ++q) beLane *= beC;
+  }
 
   float a[C], g[C];
 #pragma unroll
@@ -185,7 +286,13 @@ la_dp(const float* __restrict__ p0, const float* __restrict__ p1,
         v[c] = e * (1.f + a[c] + prm.bg * g[c]);
         acc += v[c];
       }
-      closure_row<C>(v, an, prm.bg, prm.be, beC, lane);
+      if (WIDE) {
+        float unused = 0.f;
+        closure_row_wide<C>(v, an, prm.bg, prm.be, beC, beW, beLane, lane, warp, nwarps, sh,
+                            unused);
+      } else {
+        closure_row<C>(v, an, prm.bg, prm.be, beC, lane);
+      }
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         g[c] = fmaf(prm.be, g[c], a[c]);
@@ -201,6 +308,11 @@ la_dp(const float* __restrict__ p0, const float* __restrict__ p1,
         r = fmaxf(r, m[c]);
       }
       r = warp_max(r);
+      if (WIDE) {
+        if (lane == 0) sh.red[warp] = r;
+        __syncthreads();
+        for (int q = 0; q < nwarps; ++q) r = fmaxf(r, sh.red[q]);
+      }
       float rs = 0.f;
 #pragma unroll
       for (int c = 0; c < C; ++c) {
@@ -208,7 +320,10 @@ la_dp(const float* __restrict__ p0, const float* __restrict__ p1,
         rs += v[c];
       }
       rs = warp_sum(rs);
-      closure_row<C>(v, an, prm.bg, prm.be, beC, lane);
+      if (WIDE)
+        closure_row_wide<C>(v, an, prm.bg, prm.be, beC, beW, beLane, lane, warp, nwarps, sh, rs);
+      else
+        closure_row<C>(v, an, prm.bg, prm.be, beC, lane);
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         g[c] = logaddexp(prm.lbe + g[c], a[c]);
@@ -217,9 +332,19 @@ la_dp(const float* __restrict__ p0, const float* __restrict__ p1,
       acc = logaddexp(acc, r + logf(fmaxf(rs, TINY)));
     }
   }
-  if (!LOG) acc = 1.f + warp_sum(acc);
-  else acc = logaddexp(0.f, acc);
-  if (lane == 0) out[b] = acc;
+  if (!LOG) {
+    acc = warp_sum(acc);
+    if (WIDE) {  // the warps' sums in warp order
+      if (lane == 0) sh.red[warp] = acc;
+      __syncthreads();
+      acc = 0.f;
+      for (int q = 0; q < nwarps; ++q) acc += sh.red[q];
+    }
+    acc = 1.f + acc;
+  } else {
+    acc = logaddexp(0.f, acc);
+  }
+  if (lane == 0 && (!WIDE || warp == 0)) out[b] = acc;
 }
 
 template <bool LOG, bool FACTORED>
@@ -229,14 +354,20 @@ int launch(const float* p0, const float* p1, const int* lx, const int* ly,
   const int chunk = (max_ly + 31) / 32;
   const dim3 grid((batch + WARPS - 1) / WARPS), block(32 * WARPS);
 #define LA_DP_CASE(CC)                                                     \
-  la_dp<CC, LOG, FACTORED><<<grid, block, 0, stream>>>(                    \
+  la_dp<CC, LOG, FACTORED, false><<<grid, block, 0, stream>>>(             \
       p0, p1, lx, ly, batch, max_lx, max_ly, rank, prm, out)
   if (chunk <= 2) LA_DP_CASE(2);
   else if (chunk <= 4) LA_DP_CASE(4);
   else if (chunk <= 8) LA_DP_CASE(8);
   else if (chunk <= 16) LA_DP_CASE(16);
   else if (chunk <= 32) LA_DP_CASE(32);
-  else return (int)cudaErrorInvalidValue;
+  else if (max_ly <= WIDE_WARPS * WARP_COLS) {
+    const int threads = 32 * ((max_ly + WARP_COLS - 1) / WARP_COLS);
+    la_dp<WIDE_C, LOG, FACTORED, true><<<batch, threads, 0, stream>>>(
+        p0, p1, lx, ly, batch, max_lx, max_ly, rank, prm, out);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
 #undef LA_DP_CASE
   return (int)cudaGetLastError();
 }

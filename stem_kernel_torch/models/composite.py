@@ -44,7 +44,8 @@ class StemLiteConfig:
     bp_opts: BPMatrixOptions = field(default_factory=BPMatrixOptions)
     node_pad_multiple: int = 16
     len_pad_multiple: int = 8
-    # accepted for the JAX package's grammar; every name runs full f32 here
+    # the fixed point's product mode on the card: "highest" f32, "high" 3xTF32,
+    # "default" bf16 (ops/stem_fixed_point.py:MODES); f32 on the CPU
     precision: str = "high"
 
 

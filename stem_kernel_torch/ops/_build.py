@@ -23,9 +23,10 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "stem_kernel_torch"
 LIB_NAME = "libstem_kernel_torch.so"
+PTXAS_LOG = "ptxas.txt"  # each kernel's registers, shared memory and spills, from the last build
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # no --use_fast_math / -ftz: the kernels keep subnormals, as torch does on the CPU
-NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def find_nvcc() -> str:
@@ -66,13 +67,15 @@ def build() -> tuple[Path, float]:
         procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(s), "-o", o],
                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
                  for s, o in zip(srcs, objs)]
-        failed = []
+        failed, log = [], []
         for s, proc in zip(srcs, procs):
             out, err = proc.communicate()
             if proc.returncode != 0:
                 failed.append(f"{s.name} ({proc.returncode}):\n{out}\n{err}")
+            log.append(f"== {s.name}\n{out}{err}")
         if failed:
             raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        (BUILD_DIR / PTXAS_LOG).write_text("".join(log))
         tmp_lib = os.path.join(tmp, LIB_NAME)
         proc = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", tmp_lib, *objs],
                               capture_output=True, text=True, check=False)
@@ -91,6 +94,13 @@ def load_library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.stem_fixed_point_f32
     fn.argtypes = [p] * 9 + [i, i, i, i] + [p] * 4 + [p]
+    fn.restype = ctypes.c_int
+    # (ns, vx, vy, ax, ay, l, ux, uy, iters, batch, nx, ny, mode, out, stream)
+    fn = lib.stem_fixed_point_cluster
+    fn.argtypes = [p] * 9 + [i, i, i, i] + [p, p]
+    fn.restype = ctypes.c_int
+    fn = lib.stem_fixed_point_cluster_info
+    fn.argtypes = [i, i, i, p]
     fn.restype = ctypes.c_int
     # (p0, p1, lx, ly, batch, max_lx, max_ly[, rank], alpha, beta, bg, be,
     #  log bg, log be, out, stream)

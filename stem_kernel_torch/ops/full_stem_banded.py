@@ -27,7 +27,10 @@ import torch
 from ..models.full_stem import banded_inputs, banded_level0, full_stem_kernel_banded_log
 from ._build import load_library
 
-MAX_BAND = 32  # W = 2*band+1 <= 65: two (W, W) f32 planes of shared memory a block
+# the CUDA kernel's largest band: two (W, W) f32 planes, W = 2*band+1, in one
+# block's shared memory (2 * 169^2 * 4 B = 228,488 B of the H100's 232,448);
+# the plain version takes any band
+MAX_BAND = 84
 
 
 def full_stem_banded_log_reference(x_codes, y_codes, lx, ly, bp_x, bp_y, gap, stack,
@@ -39,8 +42,8 @@ def full_stem_banded_log_reference(x_codes, y_codes, lx, ly, bp_x, bp_y, gap, st
 
 
 def _check(x_codes, y_codes, lx, ly, bp_x, bp_y, band) -> None:
-    if not isinstance(band, int) or not 1 <= band <= MAX_BAND:
-        raise ValueError(f"band must be an int in 1..{MAX_BAND}, got {band!r}")
+    if not isinstance(band, int) or isinstance(band, bool) or band < 1:
+        raise ValueError(f"band must be a positive int, got {band!r}")
     if not isinstance(x_codes, torch.Tensor) or x_codes.dim() != 2:
         raise ValueError("x_codes must be a (B, nx) tensor")
     if not isinstance(y_codes, torch.Tensor) or y_codes.dim() != 2:
@@ -66,6 +69,9 @@ def _check(x_codes, y_codes, lx, ly, bp_x, bp_y, band) -> None:
             raise ValueError(f"{name}: need a contiguous tensor")
     if bsz > 65535:
         raise ValueError(f"batch {bsz} exceeds the kernel's grid limit of 65535 pairs")
+    if dev.type == "cuda" and band > MAX_BAND:
+        raise ValueError(f"band {band} exceeds the CUDA kernel's limit of {MAX_BAND}: its two "
+                         "(2*band+1)^2 f32 planes must fit one block's shared memory")
 
 
 def full_stem_banded_log(x_codes, y_codes, lx, ly, bp_x, bp_y, gap, stack, subst, *,
@@ -73,7 +79,8 @@ def full_stem_banded_log(x_codes, y_codes, lx, ly, bp_x, bp_y, gap, stack, subst
     """log K of the banded full stem kernel (K6).  Returns (B,) float32.
 
     x_codes (B, nx), y_codes (B, ny) uint8; lx, ly (B,) int32; bp_x
-    (B, nx, nx), bp_y (B, ny, ny) float32 pair weights; 1 <= band <= 32.
+    (B, nx, nx), bp_y (B, ny, ny) float32 pair weights; band >= 1 (at most
+    ``MAX_BAND`` on the card).
     """
     _check(x_codes, y_codes, lx, ly, bp_x, bp_y, band)
     if x_codes.device.type == "cpu":

@@ -49,7 +49,7 @@ from ._build import load_library
 NEG = -1e30  # log of an empty cell; never -inf, so logaddexp never meets inf - inf
 TINY = float(torch.finfo(torch.float32).tiny)  # smallest normal f32
 MAX_RANK = 6  # factor slots of the factored kernels
-MAX_LY = 1024  # 32 lanes x 32 columns a lane
+MAX_LY = 32768  # the CUDA kernel: 32 warps of 1024 columns (csrc/la_dp.cu); the CPU has no limit
 
 
 def _scalars(beta, gap, ext) -> dict[str, float]:
@@ -206,8 +206,8 @@ def _check_common(lead: torch.Tensor, lx, ly, max_ly: int) -> None:
     bsz = lead.shape[0]
     _check_tensor("lx", lx, (bsz,), torch.int32, dev)
     _check_tensor("ly", ly, (bsz,), torch.int32, dev)
-    if max_ly > MAX_LY:
-        raise ValueError(f"Ly = {max_ly} exceeds the kernel's limit of {MAX_LY} columns")
+    if dev.type == "cuda" and max_ly > MAX_LY:
+        raise ValueError(f"Ly = {max_ly} exceeds the CUDA kernel's limit of {MAX_LY} columns")
 
 
 def _check_factored(fx, fy, lx, ly) -> None:

@@ -194,6 +194,35 @@ def test_plain_versions_match_pallas_interpret(case):
     np.testing.assert_allclose(got, want, rtol=rtol)
 
 
+def _long_case(kernel, rng):
+    """Operands with Ly = 1500 > 1024 columns and Lx != Ly: rank-6 factors
+    (K2) or a score slab low enough that exp space stays finite (K4)."""
+    lx = np.array([24, 17], np.int32)
+    ly = np.array([1500, 1100], np.int32)
+    if kernel == "K2":
+        fx = (rng.normal(size=(2, 24, 6)) * 0.4).astype(np.float32)
+        fy = (rng.normal(size=(2, 1500, 6)) * 0.4).astype(np.float32)
+        return (fx, fy, lx, ly)
+    return (rng.uniform(-8.0, -3.0, (2, 24, 1500)).astype(np.float32), lx, ly)
+
+
+@pytest.mark.parametrize("kernel", ["K2", "K4"])
+def test_plain_versions_take_ly_1500(kernel):
+    """The CPU wrappers take Ly past the one-warp kernel's 1024 columns,
+    against the Pallas functions in interpret mode (K2 la_log_factored,
+    K4 la_exp_pallas), within the bands of the short cases."""
+    ops = _long_case(kernel, np.random.default_rng(13))
+    if kernel == "K2":
+        got = tl.la_log_factored(*_t(*ops), ALPHA, *PARAMS).numpy()
+        want = np.asarray(jp.la_log_factored(*_j(*ops), ALPHA, *PARAMS, block_b=8,
+                                             interpret=True))
+    else:
+        got = tl.la_exp(*_t(*ops), *PARAMS).numpy()
+        want = np.asarray(jp.la_exp_pallas(*_j(*ops), *PARAMS, block_b=8, interpret=True))
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
 def test_dispatchers_take_the_plain_versions_on_cpu():
     rng = np.random.default_rng(9)
     s, lx, ly = _ragged_scores(rng, lo=-3.0, hi=2.0)
@@ -211,7 +240,7 @@ def test_dispatchers_take_the_plain_versions_on_cpu():
 
 
 @pytest.mark.parametrize("bad", ["int64 lengths", "rank 7", "rank 1", "strided",
-                                 "Ly too long", "scores2 shape"])
+                                 "int64 y lengths", "scores2 shape"])
 def test_wrappers_reject_bad_operands(bad):
     fx = torch.zeros(2, 5, 6)
     fy = torch.zeros(2, 4, 6)
@@ -225,7 +254,7 @@ def test_wrappers_reject_bad_operands(bad):
         "rank 1": lambda: tl.la_log_factored(fx[..., :1].contiguous(), fy[..., :1].contiguous(),
                                              lx, ly, ALPHA, *PARAMS),
         "strided": lambda: tl.la_exp(s.transpose(1, 2), lx, ly, *PARAMS),
-        "Ly too long": lambda: tl.la_log(torch.zeros(2, 3, tl.MAX_LY + 1), lx, ly, *PARAMS),
+        "int64 y lengths": lambda: tl.la_exp(s, lx, ly.long(), *PARAMS),
         "scores2 shape": lambda: tl.la_log(s, lx, ly, *PARAMS, scores2=torch.zeros(2, 5, 3)),
     }
     with pytest.raises(ValueError):
@@ -330,3 +359,21 @@ def test_cuda_kernel_matches_plain_version(kernel):
         want = reference(*args, **kw).cpu().numpy()
         np.testing.assert_allclose(got, want, **({"atol": 3e-3} if "log" in kernel
                                                  else {"rtol": 1e-3}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K2", "K4"])
+def test_cuda_kernel_takes_ly_1500(kernel):
+    """Ly = 1500 on the card: one block a pair, a warp per 1024 columns,
+    against the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
+    ops = [t.cuda() for t in _t(*_long_case(kernel, np.random.default_rng(13)))]
+    if kernel == "K2":
+        got = tl.la_log_factored(*ops, ALPHA, *PARAMS).cpu().numpy()
+        want = tl.la_log_factored_reference(*ops, ALPHA, *PARAMS).cpu().numpy()
+        np.testing.assert_allclose(got, want, atol=3e-3)
+    else:
+        got = tl.la_exp(*ops, *PARAMS).cpu().numpy()
+        want = tl.la_exp_reference(*ops, *PARAMS).cpu().numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-3)

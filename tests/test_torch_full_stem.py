@@ -287,7 +287,20 @@ def test_wrapper_takes_the_plain_version_on_cpu():
     assert tk.full_stem_banded_log.launches == before  # no kernel on the CPU
 
 
-@pytest.mark.parametrize("bad", ["band 0", "band 33", "band float", "int64 lengths",
+def test_band_40_matches_jax_scan():
+    """A band the CUDA kernel took only up to 32 before: the wrapper takes
+    any band on the CPU; against the XLA scan, lx != ly, 60-90 nt."""
+    rng = np.random.default_rng(30)
+    x, lx, bx = _hairpins(rng, 3, 91, 60, 90)
+    y, ly, by = _hairpins(rng, 3, 91, 60, 90)
+    ops = (x, y, lx, ly, bx, by)
+    got = tk.full_stem_banded_log(*_t(*ops), *WEIGHTS, band=40).numpy()
+    want = np.asarray(jf.full_stem_kernel_banded_log(*_j(*ops), *WEIGHTS, band=40))
+    assert np.isfinite(got).all() and (got > 0).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+
+
+@pytest.mark.parametrize("bad", ["band 0", "band -1", "band float", "int64 lengths",
                                  "int64 y lengths", "lengths shape", "float64 weights",
                                  "float16 x weights", "int codes", "float y codes", "1-D codes",
                                  "1-D y codes", "strided weights", "strided y weights",
@@ -295,7 +308,7 @@ def test_wrapper_takes_the_plain_version_on_cpu():
 def test_wrapper_rejects_bad_operands(bad):
     x, y, lx, ly, bx, by = _t(*_pack([("gggaaacccaugc", "gggaaaccc")]))
     args = {"x": x, "y": y, "lx": lx, "ly": ly, "bx": bx, "by": by}
-    band = {"band 0": 0, "band 33": 33, "band float": 4.0}.get(bad, 4)
+    band = {"band 0": 0, "band -1": -1, "band float": 4.0}.get(bad, 4)
     if bad == "int64 lengths":
         args["lx"] = lx.long()
     elif bad == "int64 y lengths":
@@ -374,3 +387,20 @@ def test_cuda_kernel_matches_plain_version(case):
     first3 = [o[:3].contiguous() for o in ops]
     alone = tk.full_stem_banded_log(*first3, *WEIGHTS, band=8, ali_bound=ali).cpu().numpy()
     assert np.array_equal(alone, got[:3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [40, 70])
+def test_cuda_kernel_wide_band_matches_plain_version(band):
+    """K6 above band 32 on the card: two opted-in shared-memory planes, and
+    above band 63 a scan thread takes two lines."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
+    rng = np.random.default_rng(31)
+    x, lx, bx = _hairpins(rng, 4, 91, 60, 90)
+    y, ly, by = _hairpins(rng, 4, 91, 60, 90)
+    ops = [t.cuda() for t in _t(x, y, lx, ly, bx, by)]
+    got = tk.full_stem_banded_log(*ops, *WEIGHTS, band=band).cpu().numpy()
+    torch.cuda.synchronize()
+    want = tk.full_stem_banded_log_reference(*ops, *WEIGHTS, band=band)
+    np.testing.assert_allclose(got, want.cpu().numpy(), rtol=0, atol=1e-3)

@@ -55,6 +55,29 @@ def test_train_flow_matches_jax_cli(tmp_path, flags, band):
     assert np.abs(t_g - j_g).max() <= band
 
 
+def _mixed(rng, n, lo, hi):
+    """Stem / loop / reverse-complement sequences of lo..hi nt."""
+    comp = {"a": "u", "c": "g", "g": "c", "u": "a"}
+    out = []
+    for _ in range(n):
+        ln = int(rng.integers(lo, hi + 1))
+        stem = "".join(rng.choice(list("acgu"), size=ln // 3))
+        mid = "".join(rng.choice(list("acgu"), size=ln - 2 * len(stem)))
+        out.append(stem + mid + "".join(comp[c] for c in reversed(stem)))
+    return out
+
+
+def test_band_40_matches_jax_cli(tmp_path):
+    """-b 40, above the CUDA kernel's former limit of 32, on 60-90 nt."""
+    seqs = _mixed(np.random.default_rng(5), 3, 60, 80)
+    p = _files(tmp_path, {"pos": seqs[:2], "neg": seqs[2:]})
+    t_labels, t_g = _train(t_cli.main, ["--device", "cpu", "-b", "40"], str(tmp_path / "t.dat"), p)
+    j_labels, j_g = _train(j_cli.main, ["--single-device", "-b", "40"], str(tmp_path / "j.dat"), p)
+    assert t_labels == j_labels == ["+1"] * 2 + ["-1"]
+    assert np.isfinite(t_g).all()
+    assert np.abs(t_g - j_g).max() <= BAND
+
+
 @pytest.mark.parametrize("flags", [["-b", "5"], []], ids=["banded", "dense"])
 def test_predict_flow_matches_jax_cli(tmp_path, flags):
     p = _files(tmp_path, {**TRAIN, **TEST})
@@ -96,3 +119,15 @@ def test_unported_options_are_rejected(tmp_path, flag, capsys):
                     "+1", p["pos"], "-1", p["neg"]])
     assert exc.value.code == 2
     assert flag[0] in capsys.readouterr().err
+
+
+@pytest.mark.cuda
+def test_band_40_cuda_matches_cpu(tmp_path):
+    """-b 40 on the card (K6 with opted-in shared memory) against --device cpu."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
+    seqs = _mixed(np.random.default_rng(5), 3, 60, 80)
+    p = _files(tmp_path, {"pos": seqs[:2], "neg": seqs[2:]})
+    _, c_g = _train(t_cli.main, ["--device", "cpu", "-b", "40"], str(tmp_path / "c.dat"), p)
+    _, g_g = _train(t_cli.main, ["--device", "cuda", "-b", "40"], str(tmp_path / "g.dat"), p)
+    assert np.abs(c_g - g_g).max() <= BAND

@@ -1,0 +1,203 @@
+"""The closure fixed point's product modes (K1 on the card: f32, 3xTF32, bf16).
+
+The precision names map onto modes (``stem_kernel_torch.ops.stem_fixed_point.
+MODES``); the plain version rounds each product's operands as the kernel
+does.  Here: the rounding helpers against numpy bit-level references, the
+3xTF32 split, the plain version in each mode against the JAX package on
+real DAG features (square per-pair trips, and a rectangular Nx != Ny
+batch), the CPU wrapper's f32 for every name, and the kernel on the card
+against the plain version in the same mode (skipped without a card).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from stem_kernel_tpu.models import stem_kernel as jsk
+from stem_kernel_tpu.ops.pallas_stem import stem_fixed_point as j_fixed_point
+from stem_kernel_torch.models import stem_kernel as tsk
+from stem_kernel_torch.ops import stem_fixed_point as fp
+
+from test_torch_stem_kernel import SEQS, _dags, _features, _pair_operands, _to_jax
+
+
+def _np_round(x: np.ndarray, mantissa: int, ties_even: bool) -> np.ndarray:
+    """f32 rounded to ``mantissa`` explicit bits by float64 arithmetic (no
+    bit tricks): the spacing is 2^(E - mantissa) with E = max(exponent, -126),
+    so subnormals keep the f32 exponent floor."""
+    x64 = x.astype(np.float64)
+    out = x64.copy()
+    fin = np.isfinite(x64) & (x64 != 0)
+    _, e = np.frexp(np.abs(x64[fin]))  # |x| = m 2^e, m in [0.5, 1)
+    ulp = np.ldexp(1.0, np.maximum(e - 1, -126) - mantissa)
+    q = np.abs(x64[fin]) / ulp  # exact: a power-of-two scale
+    q = np.rint(q) if ties_even else np.floor(q + 0.5)
+    out[fin] = np.sign(x64[fin]) * q * ulp
+    with np.errstate(over="ignore"):
+        return out.astype(np.float32)
+
+
+def _edge_values(rng: np.random.Generator, drop_bits: int) -> np.ndarray:
+    """Random f32 over the whole exponent range, exact ties at the rounding
+    bit (both signs, odd and even kept parts), subnormals, zeros, the
+    largest finite values (which round to inf) and inf."""
+    bits = rng.integers(0, 0x7F800000, 4000, dtype=np.int64)
+    half = 1 << (drop_bits - 1)
+    ties = (rng.integers(0, 0x7F800000 >> drop_bits, 1000, dtype=np.int64) << drop_bits) | half
+    sub = rng.integers(1, 1 << 23, 1000, dtype=np.int64)  # exponent 0
+    sub_ties = ((rng.integers(0, (1 << 23) >> drop_bits, 200, dtype=np.int64) << drop_bits)
+                | half)
+    special = np.array([0, 0x7F7FFFFF, 0x7F7FF000, 0x7F800000, 1, half, half - 1],
+                       dtype=np.int64)
+    allb = np.concatenate([bits, ties, sub, sub_ties, special])
+    signs = rng.integers(0, 2, allb.size, dtype=np.int64) << 31
+    return (allb | signs).astype(np.uint32).view(np.float32)
+
+
+def test_round_tf32_matches_numpy_bits():
+    x = _edge_values(np.random.default_rng(40), 13)
+    got = fp.round_tf32(torch.as_tensor(x)).numpy()
+    want = _np_round(x, 10, ties_even=False)
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    assert not (got.view(np.uint32) & 0x1FFF).any()
+
+
+def test_round_bf16_matches_numpy_bits():
+    x = _edge_values(np.random.default_rng(41), 16)
+    got = fp.round_bf16(torch.as_tensor(x)).numpy()
+    want = _np_round(x, 7, ties_even=True)
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_split_tf32_reconstructs():
+    """hi + lo gives x within 2^-22 relative, both parts TF32 (low 13 bits 0)."""
+    rng = np.random.default_rng(42)
+    x = (rng.uniform(1, 2, 100_000) * 2.0 ** rng.integers(-100, 100, 100_000)
+         * rng.choice([-1.0, 1.0], 100_000)).astype(np.float32)
+    hi, lo = fp.split_tf32(torch.as_tensor(x))
+    for part in (hi, lo):
+        assert not (part.numpy().view(np.uint32) & 0x1FFF).any()
+    rec = hi.double() + lo.double()
+    rel = ((rec - torch.as_tensor(x).double()).abs() / torch.as_tensor(x).double().abs()).max()
+    assert float(rel) <= 2.0 ** -22
+
+
+def _rel(got: np.ndarray, want: np.ndarray) -> float:
+    return float((np.abs(got - want) / np.abs(want)).max())
+
+
+def test_bf16_mode_matches_pallas_default():
+    """The plain version in bf16 against the JAX kernel's one-pass bf16
+    ``dot_bf`` (interpret mode): both round the operands of every product to
+    bf16 and sum in f32.  They agree within 1e-5 relative (8.1e-8 measured),
+    while bf16 moves the value 1.4e-3 from f32: the plain version must sit at
+    least 10x nearer the JAX kernel than the f32 value does, so a version
+    that skips or halves the rounding fails."""
+    ops, iters = _pair_operands("per_pair")
+    want = np.asarray(j_fixed_point(*[jnp.asarray(o.numpy()) for o in ops], max_iters=iters,
+                                    precision="default", interpret=True))
+    got = fp.stem_fixed_point_reference(*ops, max_iters=iters, mode="bf16").numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    f32 = fp.stem_fixed_point_reference(*ops, max_iters=iters).numpy()
+    assert _rel(f32, want) >= 10 * max(_rel(got, want), 1e-6)
+
+
+def _rect_case():
+    """A rectangular batch (Nx = 16, Ny = 32) on real DAG features with
+    per-pair trips, and the JAX XLA path's values at "highest" for it."""
+    small, large = _dags(SEQS[:2]), _dags(SEQS[2:])
+    js, ts = _features(small, 16)
+    jl, tl = _features(large, 32)
+    iters = max(d.depth for d in small + large) + 1
+    ix = np.array([0, 1, 0, 1, 1])
+    iy = np.array([0, 1, 2, 2, 0])
+    co = jsk.subst_co_table(0.3)
+    want = np.asarray(jsk.stem_kernel_pairs(
+        _to_jax({k: v[ix] for k, v in js.items()}), _to_jax({k: v[iy] for k, v in jl.items()}),
+        jnp.asarray(co), iters=iters, len_band=10, precision="highest", force_xla=True))
+    x = {k: v[torch.as_tensor(ix)] for k, v in ts.items()}
+    y = {k: v[torch.as_tensor(iy)] for k, v in tl.items()}
+    ops = tsk.fixed_point_operands(x, y, torch.as_tensor(co), iters=iters, len_band=10)
+    leaf = ((x["u"] * x["leaf"]).sum(-1) * (y["r"] * y["leaf"]).sum(-1)).numpy()
+    return ops, iters, want - leaf
+
+
+@pytest.mark.parametrize("mode", ["f32", "3xtf32"])
+@pytest.mark.parametrize("shape", ["square", "rectangular"])
+def test_f32_modes_match_jax_highest(mode, shape):
+    """f32 and 3xTF32 against JAX "highest" (full f32) within 1e-4 rel:
+    the Pallas kernel in interpret mode (square) or the XLA loop (Nx != Ny)."""
+    if shape == "square":
+        ops, iters = _pair_operands("per_pair")
+        want = np.asarray(j_fixed_point(*[jnp.asarray(o.numpy()) for o in ops],
+                                        max_iters=iters, precision="highest", interpret=True))
+    else:
+        ops, iters, want = _rect_case()
+    assert len(set(ops[-1].tolist())) > 1  # per-pair trip counts
+    got = fp.stem_fixed_point_reference(*ops, max_iters=iters, mode=mode).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_cpu_wrapper_runs_f32_for_every_name(precision):
+    ops, iters = _pair_operands("per_pair")
+    before = (fp.stem_fixed_point.launches, fp.stem_fixed_point.launches_wide)
+    got = fp.stem_fixed_point(*ops, max_iters=iters, precision=precision).numpy()
+    want = fp.stem_fixed_point_reference(*ops, max_iters=iters, mode="f32").numpy()
+    assert np.array_equal(got, want)
+    assert (fp.stem_fixed_point.launches, fp.stem_fixed_point.launches_wide) == before
+
+
+def test_modes_and_routes():
+    assert fp.MODES == {"highest": "f32", "high": "3xtf32", "default": "bf16"}
+    for precision in fp.PRECISIONS:
+        assert fp.cluster_route(128, 128, precision) and fp.cluster_route(120, 16, precision)
+        assert fp.cluster_route(1, 64, precision) and fp.cluster_route(128, 64, precision)
+        assert not fp.cluster_route(129, 64, precision)
+        assert not fp.cluster_route(64, 144, precision)
+        assert not fp.cluster_route(256, 256, precision)
+    # 3xTF32 on four CTAs of 16 rows each: the per-product kernel
+    assert not fp.cluster_route(64, 128, "high") and not fp.cluster_route(20, 100, "high")
+    assert fp.cluster_route(64, 128, "highest") and fp.cluster_route(64, 128, "default")
+    with pytest.raises(ValueError):
+        fp.stem_fixed_point_reference(*_pair_operands("full")[0], max_iters=2, mode="tf32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("shape", [(64, 64), (128, 64), (64, 128), (40, 72), (128, 256),
+                                   (320, 288)],
+                         ids=["C=1", "rect C=4", "64x128", "padded", "per-product 128x256",
+                              "per-product 320x288"])
+def test_cuda_modes_match_plain_version(precision, shape):
+    """The kernel in each mode against the plain version in the same mode,
+    on random operands scaled so the fixed point stays bounded, with
+    per-pair trips (0 included).  Where ``cluster_route`` says no (past
+    128 nodes; 64 x 128 in 3xTF32) the per-product route runs, f32 for
+    every name."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
+    nx, ny = shape
+    g = torch.Generator().manual_seed(nx + ny)
+    bsz = 6
+    mats = [torch.rand(bsz, nx, ny, generator=g), torch.rand(bsz, nx, nx, generator=g) * 1.5 / nx,
+            torch.rand(bsz, ny, ny, generator=g) * 1.5 / ny,
+            torch.rand(bsz, nx, nx, generator=g) * 1.5 / nx,
+            torch.rand(bsz, ny, ny, generator=g) * 1.5 / ny, torch.rand(bsz, nx, ny, generator=g)]
+    vecs = [torch.rand(bsz, nx, generator=g), torch.rand(bsz, ny, generator=g)]
+    trips = torch.tensor([0, 1, 2, 3, 5, 6], dtype=torch.int32)
+    args = [t.cuda() for t in mats + vecs + [trips]]
+    wide = not fp.cluster_route(nx, ny, precision)
+    before = fp.stem_fixed_point.launches_wide if wide else fp.stem_fixed_point.launches
+    got = fp.stem_fixed_point(*args, max_iters=6, precision=precision).cpu().numpy()
+    torch.cuda.synchronize()
+    after = fp.stem_fixed_point.launches_wide if wide else fp.stem_fixed_point.launches
+    assert after == before + 1
+    mode = "f32" if wide else fp.MODES[precision]
+    want = fp.stem_fixed_point_reference(*args, max_iters=6, mode=mode).cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4)  # f32 sums in another order
+    assert got[0] == 0.0
+    if mode == "bf16":  # the kernel rounds: 10x nearer plain bf16 than plain f32
+        f32 = fp.stem_fixed_point_reference(*args, max_iters=6).cpu().numpy()
+        assert _rel(got[1:], f32[1:]) >= 10 * _rel(got[1:], want[1:])
