@@ -42,8 +42,17 @@ Phases (the first failure exits non-zero; nothing is caught):
    corpus's (w_pair, w_unpair) through ``la_log_affine_auto`` for K5), exp
    rel 1e-3 and log abs 3e-3, and K2-K5 at Ly = 1500 (Lx != Ly, one block a
    pair, a warp per 1024 columns; exp-space inputs whose values stay
-   finite); the first 3 pairs alone must equal their values inside the
-   batch bit for bit;
+   finite); the log kernels K2 and K5 also at the padded widths 31, 32, 33,
+   64, 65, 128 and 129 (Lx != Ly; K2 at ranks 2 and 6, K5 on one slab and on
+   two), on a batch whose emissions drop 40+ nats after 30 strong rows, on
+   the long-score case (15 a cell, 160 x 160, log K 326.0), and on their
+   path batches padded 64 columns wider, which take another lane geometry
+   (its values within 3e-3 of the unpadded ones); K2 on 256 pairs of
+   384-512 rows and columns (the lane kernels' longest) and at 600 x 600
+   (the one-warp kernel past them); the first 3 pairs alone must equal
+   their values inside the batch bit for bit.  K2 at 1000 x 1000 is printed
+   and not held to the gate: f32 log K is good to about 1e-2 there, the
+   plain version's too (PERF.md, open questions);
 7. BPLA path: ``bpla_kernel`` train on the corpus (K2), ``svm_tools train``,
    predict on the 40 held-out sequences, and ``--device cpu`` against
    ``--device cuda`` on 8 sequences within the 1.3e-3 band;
@@ -57,7 +66,11 @@ Phases (the first failure exits non-zero; nothing is caught):
    with the LA path's Gram;
 11. K2-K5 times against their plain versions (CUDA events, plain, kernel,
    kernel, plain), at the paths' shapes and at Ly = 1500, and the BPLA and
-   LA Gram rates;
+   LA Gram rates; the log kernels' lane-geometry table (device ms a call,
+   graph replay, of every geometry that holds the width, and the one-warp
+   kernel, at B = 256 on the two path batches and on K2 factors of widths
+   32-1024: the times that place ``la.LOG_ROUTE``), and K2 and K5 at
+   B = 4096;
 12. K6 parity: the banded full stem kernel against its plain version at full
    width (n = 301, band 16, B = 16) on the config-3 generator of
    ``bench_full200.py`` (80-300 nt hairpins): the square case, lx != ly,
@@ -90,8 +103,14 @@ the operations this run's inputs need over the peak of the unit that runs
 them, 67 TFLOP/s f32, 495 TFLOP/s TF32 (three passes for 3xTF32) or 989
 TFLOP/s bf16 (the H100 SXM's published peaks).  K1 has two entries, one a
 route: the cluster kernel in the main path's mode, "high", and the
-per-product kernel (f32).  The last line is ``{"ok": true, "device": {...}}``.
-Imports nothing of JAX.
+per-product kernel (f32).  ``ms`` is CUDA events around repeated wrapper
+calls, host time between launches included; ``device_ms`` the same calls
+captured in a CUDA graph and replayed under CUDA events, except K6's: its
+wrapper reads max(lx) on the host, so its ``device_ms`` is the summed time
+of the device's events under torch.profiler (null if the trace holds
+none).  K2 and K5 also list their largest error on the lane kernels and on the
+one-warp kernel apart.  The last line is ``{"ok": true, "device":
+{...}}``.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -144,6 +163,14 @@ PEAK_BF16 = 989e12  # H100 SXM bf16 tensor cores, dense
 # K1's product mode -> (the unit's peak, passes an operation takes on it)
 K1_PEAKS = {"f32": (PEAK_F32, 1), "3xtf32": (PEAK_TF32, 3), "bf16": (PEAK_BF16, 1)}
 LONG_LY = 1500  # the LA kernels past one warp's 1024 columns
+EDGE_LY = (31, 32, 33, 64, 65, 128, 129)  # the log kernels' chunk and geometry edges
+EDGE_BATCH = 64  # pairs of those batches
+WIDER = 64  # columns a path batch is padded wider by, to take another lane geometry
+ROUTE_WIDTHS = (32, 64, 256, 512, 1024)  # K2's other widths in the geometry table
+BIG_BATCH = 4096  # the log kernels' large-batch times
+CAP_BATCH = 256  # K2 pairs at the lane kernels' longest
+PAST_CAP = 600  # a K2 batch past the lane kernels' 512 rows and columns
+ILL_LEN = 1000  # a K2 batch where f32 log K is good to about 1e-2 only
 WIDE_BAND = 40  # K6 past its former limit of band 32
 # operations a cell needs, as each kernel's arithmetic counts them (a
 # transcendental, a division or a compare counts as one):
@@ -237,6 +264,111 @@ def timed_pair(kernel, plain, reps: int) -> tuple[float, float]:
 def pick(feats: dict, idx: np.ndarray, dev) -> dict:
     """The rows ``idx`` of a numpy feature dict, as tensors on ``dev``."""
     return {k: torch.as_tensor(v[idx], device=dev) for k, v in feats.items()}
+
+
+def device_us(prof, kernel: str = "") -> tuple[float, float]:
+    """(microseconds of the device's events in a torch.profiler trace, those
+    whose name contains ``kernel``)."""
+    total = named = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue  # an aten op's device column repeats its kernels' time
+        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+        total += us
+        named += us if kernel in e.key else 0.0
+    return total, named
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds a call of ``fn``: ``reps`` calls captured in
+    one CUDA graph, replayed under CUDA events, so no host time between
+    launches enters."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm: the library is loaded outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    return cuda_ms(graph.replay, 3) / reps
+
+
+def traced_ms(fn, reps: int):
+    """Mean device milliseconds a call of ``fn`` that a CUDA graph cannot
+    capture: the summed time of the device's events in ``reps`` calls under
+    torch.profiler; None if the trace holds none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, _ = device_us(prof)
+    return total / 1e3 / reps if total > 0.0 else None
+
+
+def la_edge_cases(rng: np.random.Generator, dev) -> list:
+    """(key, label, operands, affine) of the log kernels K2 and K5 at the
+    padded widths EDGE_LY, Lx != Ly, ranks 2 and 6 (K2) and with and
+    without a second score slab (K5, ``affine``: operands (s0, s1, lx, ly)
+    under BPLA's alpha*s0 + s1); ragged lengths up to the pad."""
+    out = []
+    for w in EDGE_LY:
+        lx_max = w + 9
+        lx = torch.as_tensor(rng.integers(1, lx_max + 1, EDGE_BATCH).astype(np.int32), device=dev)
+        ly = torch.as_tensor(rng.integers(1, w + 1, EDGE_BATCH).astype(np.int32), device=dev)
+        lx[0], ly[0] = lx_max, w  # one pair at the full pad
+        for rank in (2, 6):
+            fx, fy = (torch.as_tensor((rng.normal(size=(EDGE_BATCH, n, rank)) * 0.5)
+                                      .astype(np.float32), device=dev) for n in (lx_max, w))
+            out.append(("K2", f"rank {rank}, Lx={lx_max} Ly={w}", [fx, fy, lx, ly], False))
+        s, s2 = (torch.as_tensor(rng.uniform(lo, hi, (EDGE_BATCH, lx_max, w)).astype(np.float32),
+                                 device=dev) for lo, hi in ((-20.0, 25.0), (-10.0, 10.0)))
+        out.append(("K5", f"Lx={lx_max} Ly={w}", [s, lx, ly], False))
+        out.append(("K5", f"two slabs, Lx={lx_max} Ly={w}", [s, s2, lx, ly], True))
+    return out
+
+
+def la_drop_cases(rng: np.random.Generator, dev) -> list:
+    """(key, label, operands, False) of K2 and K5 whose first rows score strongly
+    (about +3 a cell) and whose later rows score 40+ nats lower, so that the
+    gap state carries mass far below the later rows' maxima."""
+    b, nx, ny, strong = 16, 90, 100, 30
+    lx = torch.as_tensor(rng.integers(60, nx + 1, b).astype(np.int32), device=dev)
+    ly = torch.as_tensor(rng.integers(70, ny + 1, b).astype(np.int32), device=dev)
+    beta = BPLA[1]
+    fx = rng.normal(size=(b, nx, 6)) * 0.3
+    fy = rng.normal(size=(b, ny, 6)) * 0.3
+    fx[:, :strong, 2] = 3.0 / beta
+    fx[:, strong:, 2] = -rng.uniform(40.0, 45.0, (b, nx - strong)) / beta
+    fy[:, :, 2] = rng.uniform(0.9, 1.1, (b, ny))
+    s = rng.normal(size=(b, nx, ny)) * 5.0
+    s[:, :strong] += 3.0 / PROT[0]
+    s[:, strong:] -= 42.0 / PROT[0]
+    f32 = lambda a: torch.as_tensor(a.astype(np.float32), device=dev)  # noqa: E731
+    label = f"drop: rows {strong}.. score 40+ nats below the first {strong}"
+    return [("K2", label, [f32(fx), f32(fy), lx, ly], False),
+            ("K5", label, [f32(s), lx, ly], False)]
+
+
+def pad_wider(key: str, ops: list, cols: int) -> list:
+    """A log kernel's operands with the column axis padded ``cols`` wider
+    (zeros past every pair's length): the same pairs on another geometry."""
+    if key == "K2":
+        return [ops[0], torch.nn.functional.pad(ops[1], (0, 0, 0, cols)).contiguous(), *ops[2:]]
+    return [torch.nn.functional.pad(ops[0], (0, cols)).contiguous(), *ops[1:]]
+
+
+def log_geometry(key: str, ops: list) -> tuple[int, int]:
+    """The lane geometry the log kernel K2 or K5 takes on these operands."""
+    from stem_kernel_torch.ops.la import log_route
+
+    return log_route(ops[0].shape[1], ops[1].shape[1] if key == "K2" else ops[0].shape[2])
 
 
 def dims(key: str, ops: list) -> str:
@@ -382,13 +514,7 @@ def device_busy(engine, n_ex: int, kernel: str, batches: int = 20) -> str:
         engine.run_pairs(iu[0][:count], iu[1][:count])
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
-    total = named = 0.0
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue  # an aten op's device column repeats its kernels' time
-        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-        total += us
-        named += us if kernel in e.key else 0.0
+    total, named = device_us(prof, kernel)
     if total == 0.0:
         return "device time not measured (the trace holds no kernel events)"
     return (f"traced wall {wall_us / 1e3:.2f} ms, device {total / 1e3:.2f} ms "
@@ -828,8 +954,9 @@ def main() -> int:
     print(f"times on {smi}: K1 per-product route {w_ms:.3f} ms vs plain f32 {w_plain:.3f} ms, "
           f"bound {w_bound:.4f} ms by {w_by} (B={K1_BATCH} Nx={nx} Ny={ny}, "
           f"{4 * w_iters + 1} launches a call)")
-    report["K1w"].update(ms=w_ms, plain_ms=w_plain, bound_ms=w_bound, bound_by=w_by,
-                         mode=f"f32 for every name, timed at Nx={nx} Ny={ny}")
+    w_dev = graph_ms(lambda: per_product_route(*w_args[:-1], w_it, max_iters=w_iters), 2)
+    report["K1w"].update(ms=w_ms, device_ms=w_dev, plain_ms=w_plain, bound_ms=w_bound,
+                         bound_by=w_by, mode=f"f32 for every name, timed at Nx={nx} Ny={ny}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fold_sequences(train, cfg.bp_opts, device=dev)
@@ -845,8 +972,9 @@ def main() -> int:
           f"{cfg.precision}) {n_pairs / gram_s:.1f} pairs/s ({gram_s:.2f} s); train flow "
           f"{train_s:.2f} s; predict flow {2 * N_TEST / predict_s:.2f} rows/s ({predict_s:.2f} s)")
     k_ms, p_ms, b_ms, b_by = k1_times["high"]  # the main path's mode
-    report["K1"].update(ms=k_ms, plain_ms=p_ms, launches=launches, bound_ms=b_ms, bound_by=b_by,
-                        mode="high (3xTF32)")
+    k_dev = graph_ms(lambda: stem_fixed_point(*args, max_iters=iters, precision="high"), 3)
+    report["K1"].update(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, launches=launches,
+                        bound_ms=b_ms, bound_by=b_by, mode="high (3xTF32)")
 
     # ---- 6. LA parity (K2-K5) at the paths' shapes ----
     alpha, beta, gap, ext = BPLA
@@ -877,6 +1005,9 @@ def main() -> int:
     aa_sq, aa_rect = batch(aa_train, aa_train), batch(aa_train, aa_short)
     big = random_profiles(rng, LA_BATCH, 400, 400)
     big = pick(big, np.arange(LA_BATCH), dev)
+    cap = pick(random_profiles(rng, CAP_BATCH, 384, la.LANE_MAX_LEN), np.arange(CAP_BATCH), dev)
+    past = pick(random_profiles(rng, EDGE_BATCH, PAST_CAP, PAST_CAP), np.arange(EDGE_BATCH), dev)
+    ill = pick(random_profiles(rng, 16, ILL_LEN, ILL_LEN), np.arange(16), dev)
     # Ly = 1500 > 1024: one block a pair; exp-space operands low enough to stay finite
     long_rng = np.random.default_rng(SEED + 5)
     lb = np.arange(LONG_BATCH)
@@ -922,6 +1053,10 @@ def main() -> int:
          factored(rna_rect)),
         ("K2", "random factors L=400", fac(la.la_log_factored),
          fac(la.la_log_factored_reference), factored((big, big))),
+        ("K2", f"random factors L 384-{la.LANE_MAX_LEN}, the lane kernels' longest",
+         fac(la.la_log_factored), fac(la.la_log_factored_reference), factored((cap, cap))),
+        ("K2", f"random factors L={PAST_CAP}, past them (the one-warp kernel)",
+         fac(la.la_log_factored), fac(la.la_log_factored_reference), factored((past, past))),
         ("K2", f"random factors Lx 200-400, Ly={LONG_LY}", fac(la.la_log_factored),
          fac(la.la_log_factored_reference), factored((long_x, long_y))),
         ("K3", "random profiles", fac(la.la_exp_factored), fac(la.la_exp_factored_reference),
@@ -948,6 +1083,26 @@ def main() -> int:
         ("K5", "affine, corpus x trimmed", aff_log, aff_plain(la.la_log_reference),
          affine(rna_rect)),
     ]
+    # the log kernels' edges: every chunk and lane-geometry edge, ranks 2 and
+    # 6, two slabs, emissions that drop 40+ nats, the long-score case (log K
+    # 326.0), and the two path batches padded WIDER columns wider, which take
+    # another lane geometry
+    log_fns = {("K2", False): (fac(la.la_log_factored), fac(la.la_log_factored_reference)),
+               ("K5", False): (mat(la.la_log), mat(la.la_log_reference)),
+               ("K5", True): (aff_log, aff_plain(la.la_log_reference))}
+    edge_rng = np.random.default_rng(SEED + 6)
+    for key, label, ops, two in la_edge_cases(edge_rng, dev) + la_drop_cases(edge_rng, dev):
+        la_cases.append((key, label, *log_fns[key, two], ops))
+    n160 = torch.tensor([160, 120], dtype=torch.int32, device=dev)
+    la_cases.append(("K5", "long scores, 15 a cell",
+                     lambda s, lx, ly: la.la_log(s, lx, ly, *BPLA[1:]),
+                     lambda s, lx, ly: la.la_log_reference(s, lx, ly, *BPLA[1:]),
+                     [torch.full((2, 160, 160), 15.0, device=dev), n160,
+                      torch.full_like(n160, 160)]))
+    path_log = {"K2": factored(rna_sq), "K5": protein(aa_sq)}
+    for key, ops in path_log.items():
+        la_cases.append((key, f"path batch padded {WIDER} columns wider", *log_fns[key, False],
+                         pad_wider(key, ops, WIDER)))
     for key, label, kernel_fn, plain_fn, ops in la_cases:
         log = key in ("K2", "K5")
         got = kernel_fn(*ops)
@@ -961,7 +1116,8 @@ def main() -> int:
         first3 = [o[:3].contiguous() for o in ops]
         alone = kernel_fn(*first3)
         same = bool(torch.equal(alone, got[:3]))
-        print(f"{key} parity, {label}: {dims(key, ops)}: max abs "
+        geo = f", lanes x columns {log_geometry(key, ops)}" if log else ""
+        print(f"{key} parity, {label}: {dims(key, ops)}{geo}: max abs "
               f"{float(err.max()):.3e} max rel {rel:.3e} "
               f"({'abs' if log else 'rel'} limit {limit}); first 3 alone bit-identical {same}")
         check(metric <= limit, f"{key} {label}: kernel disagrees with its plain version")
@@ -969,6 +1125,23 @@ def main() -> int:
         r = report.setdefault(key, {"max_abs_err": 0.0, "max_rel_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], float(err.max()))
         r["max_rel_err"] = max(r["max_rel_err"], rel)
+        if log:  # the lane kernels' and the one-warp kernel's worst apart
+            f = "max_abs_err_one_warp" if log_geometry(key, ops) == (0, 0) else "max_abs_err_lanes"
+            r[f] = max(r.get(f, 0.0), float(err.max()))
+    ill_ops = factored((ill, ill))  # not gated: the plain version itself is 4e-2 from f64 here
+    ill_err = float((fac(la.la_log_factored)(*ill_ops)
+                     - fac(la.la_log_factored_reference)(*ill_ops)).abs().max())
+    print(f"K2 at L={ILL_LEN} ({dims('K2', ill_ops)}, the one-warp kernel): max abs "
+          f"{ill_err:.3e} from the plain version, not gated: f32 log K is good to about 1e-2 "
+          f"at this length")
+    for key, ops in path_log.items():  # the same pairs on two geometries
+        fn = log_fns[key, False][0]
+        diff = float((fn(*ops) - fn(*pad_wider(key, ops, WIDER))).abs().max())
+        w = ops[1].shape[1] if key == "K2" else ops[0].shape[2]
+        print(f"{key} path batch at Ly={w} {log_geometry(key, ops)} and padded to {w + WIDER} "
+              f"{log_geometry(key, pad_wider(key, ops, WIDER))}: max abs diff {diff:.3e} (abs "
+              f"limit {LA_LOG_ATOL})")
+        check(diff <= LA_LOG_ATOL, f"{key}: the two lane geometries disagree")
 
     # ---- 7. BPLA path ----
     reset_counts()
@@ -1073,10 +1246,47 @@ def main() -> int:
     }
     for key, (kernel_fn, plain_fn, ops) in timing.items():
         ms, plain_ms = timed_pair(lambda: kernel_fn(*ops), lambda: plain_fn(*ops), 5)
+        dev_ms = graph_ms(lambda: kernel_fn(*ops), 5)  # noqa: B023
         bound_ms, bound_by = la_bound(key, ops)
-        report[key].update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
-        print(f"times on {smi}: {key} {ms:.4f} ms vs plain {plain_ms:.3f} ms, bound "
-              f"{bound_ms:.4f} ms by {bound_by} ({dims(key, ops)})")
+        report[key].update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by)
+        print(f"times on {smi}: {key} {ms:.4f} ms a wrapper call (device {dev_ms:.4f}) vs "
+              f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} ({dims(key, ops)})")
+    # the log kernels' lane geometries at B = 256: K2 on the BPLA path's
+    # batch, K5 on the log protein Gram's, K2 on random factors at the other
+    # widths LOG_ROUTE covers; device ms a call (graph replay) of every
+    # geometry that holds the width at most 4x over, and of the one-warp kernel,
+    # (0, 0).  These times place LOG_ROUTE.
+    geo_rng = np.random.default_rng(SEED + 7)
+    tables = [("K2", "BPLA path batch", BPLA, path_log["K2"]),
+              ("K5", "log protein batch", PROT, path_log["K5"])]
+    for w in ROUTE_WIDTHS:
+        fxy = [torch.as_tensor((geo_rng.normal(size=(LA_BATCH, n, 6)) * 0.4).astype(np.float32),
+                               device=dev) for n in (SEQ_LEN, w)]
+        lens = [torch.full((LA_BATCH,), SEQ_LEN, dtype=torch.int32, device=dev),
+                torch.as_tensor(geo_rng.integers(w // 2 + 1, w + 1, LA_BATCH).astype(np.int32),
+                                device=dev)]
+        tables.append(("K2", "random factors", BPLA, fxy + lens))
+    for key, label, params, ops in tables:
+        w = ops[1].shape[1] if key == "K2" else ops[0].shape[2]
+        at = la.la_log_factored_at if key == "K2" else la.la_log_at
+        cells = []
+        for geo in [(0, 0)] + [g for g in la.LOG_GEOMETRIES if w <= g[0] * g[1] <= 4 * w]:
+            t = graph_ms(lambda: at(geo, *ops, *params), 5)  # noqa: B023
+            cells.append(f"{'one-warp' if geo == (0, 0) else '%dx%d' % geo} {t:.4f}")
+        print(f"times on {smi}: {key} lane geometries (lanes x columns, ms), {label} "
+              f"({dims(key, ops)}); the route takes {log_geometry(key, ops)}: {'; '.join(cells)}")
+    big_idx = lambda m: rng.integers(0, m, BIG_BATCH)  # noqa: E731
+    big_rna = (pick(rna_feats, big_idx(n), dev), pick(rna_feats, big_idx(n), dev))
+    big_aa = (pick(aa_train, big_idx(n), dev), pick(aa_train, big_idx(n), dev))
+    for key, ops in (("K2", factored(big_rna)), ("K5", protein(big_aa))):
+        kernel_fn, plain_fn = log_fns[key, False]
+        ms, plain_ms = timed_pair(lambda: kernel_fn(*ops), lambda: plain_fn(*ops), 2)  # noqa: B023
+        dev_ms = graph_ms(lambda: kernel_fn(*ops), 3)  # noqa: B023
+        bound_ms, bound_by = la_bound(key, ops)
+        print(f"times on {smi}: {key} at B={BIG_BATCH} {ms:.4f} ms a wrapper call (device "
+              f"{dev_ms:.4f}) vs plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
+              f"{bound_by} ({dims(key, ops)})")
     long_timing = {
         "K2": (fac(la.la_log_factored), fac(la.la_log_factored_reference),
                factored((long_x, long_y))),
@@ -1180,7 +1390,10 @@ def main() -> int:
         lambda: full_stem_banded_log(*k6_ops, *FULL_WEIGHTS, band=FULL_BAND),
         lambda: full_stem_banded_log_reference(*k6_ops, *FULL_WEIGHTS, band=FULL_BAND), 3)
     k6_bound_ms, k6_by = k6_bound(k6_ops, FULL_BAND)
-    report["K6"].update(ms=k6_ms, plain_ms=k6_plain_ms, bound_ms=k6_bound_ms, bound_by=k6_by)
+    # K6's wrapper reads max(lx) on the host, so no graph captures it
+    k6_dev = traced_ms(lambda: full_stem_banded_log(*k6_ops, *FULL_WEIGHTS, band=FULL_BAND), 2)
+    report["K6"].update(ms=k6_ms, device_ms=k6_dev, plain_ms=k6_plain_ms, bound_ms=k6_bound_ms,
+                        bound_by=k6_by)
     w_ms, w_plain_ms = timed_pair(
         lambda: full_stem_banded_log(*k6_wide, *FULL_WEIGHTS, band=WIDE_BAND),
         lambda: full_stem_banded_log_reference(*k6_wide, *FULL_WEIGHTS, band=WIDE_BAND), 1)
@@ -1202,9 +1415,10 @@ def main() -> int:
     busy = device_busy(PairKernelEngine(banded_fn, cli_feats, device=dev, batch_size=16,
                                         log_values=True), FULL_N, "full_stem_level")
     print(f"-b {FULL_BAND} Gram, first 20 batches traced: {busy}")
-    print(f"times on {smi}: K6 {k6_ms:.3f} ms vs plain {k6_plain_ms:.3f} ms, bound "
-          f"{k6_bound_ms:.4f} ms by {k6_by} (B=16 n={k6_ops[0].shape[1]} band={FULL_BAND}, "
-          f"lx != ly); -b {FULL_BAND} Gram {n_full_pairs / full_gram_s:.1f} pairs/s "
+    k6_dev_s = "not measured" if k6_dev is None else f"{k6_dev:.3f}"
+    print(f"times on {smi}: K6 {k6_ms:.3f} ms (device {k6_dev_s}) vs plain {k6_plain_ms:.3f} "
+          f"ms, bound {k6_bound_ms:.4f} ms by {k6_by} (B=16 n={k6_ops[0].shape[1]} "
+          f"band={FULL_BAND}, lx != ly); -b {FULL_BAND} Gram {n_full_pairs / full_gram_s:.1f} pairs/s "
           f"({full_gram_s:.2f} s, batch 16); train flow {full_train_s:.2f} s, predict flow "
           f"{FULL_TEST / full_predict_s:.2f} rows/s ({full_predict_s:.2f} s)")
 
@@ -1225,7 +1439,7 @@ def main() -> int:
                "stem_kernel_tpu/ops/pallas_full_stem.py:426"),
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    extra = ("max_rel_err", "mode")
+    extra = ("device_ms", "max_rel_err", "mode", "max_abs_err_lanes", "max_abs_err_one_warp")
     # no single PyTorch call computes any of these functions: library_ms is null
     print(json.dumps({"kernels": [
         {"name": nm, "route": "cuda", "source": src, "replaces": rep,

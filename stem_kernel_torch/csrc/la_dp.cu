@@ -1,4 +1,5 @@
-// Local-alignment (LA) DP on Hopper (sm_90a), full f32: four kernels.
+// Local-alignment (LA) DP on Hopper (sm_90a), full f32: four kernels, the
+// log pair on a choice of lane geometries.
 //
 // Replaces the four Pallas TPU kernels of stem_kernel_tpu/ops/pallas_la.py:
 //
@@ -55,9 +56,49 @@
 // block the compiler keeps 64 registers a thread, so the 32-column chunks
 // spill to local memory; the route is for rare long inputs, not for speed.
 //
-// Numerics: expf/logf/log1pf (no fast-math intrinsics, no flush to zero,
-// as in the plain torch version), and -1e30 for an empty log cell.
+// Numerics of la_dp: expf/logf/log1pf (no fast-math intrinsics, no flush
+// to zero, as in the plain torch version), and -1e30 for an empty log cell.
 //
+// The log kernels K2 and K5 (la_log_lanes) run the same row step on a lane
+// geometry: a pair takes a block of P lanes of C columns (P C >= Ly); past
+// one warp the P/32 warps join their row maxima, scan carries, edges and
+// row sums through shared memory, two barriers a row.  The library holds
+// the five geometries that the wrapper routes to (ops/la.py, LOG_ROUTE,
+// placed by chip_smoke.py's geometry table): 32 lanes of 1, 2 or 4 columns
+// up to 128 columns, 128 lanes of 2 or 4 up to 512, and the one-warp kernel
+// past 512 rows or columns.  (Fewer than 32 lanes a pair, 64 lanes, 32 x 8
+// and 128 x 1 or 8 lost at every width measured, and are gone.)  A pair's
+// bits depend on the geometry, hence on the padded shape, never on its
+// batch; the Gram engine pads a corpus once, so a Gram does not depend on
+// its batch size.
+//
+// What the design does about the row chain (the kernel's time is lx rows of
+// latency): the pair's fy sits in registers for the whole pair and the next
+// row's fx (K2) or scores (K5) is loaded while a row is computed, so no load
+// stands between two rows; each cell takes 7 SFU operations (ex2.approx,
+// lg2.approx) where the one-warp kernel takes 8 libm calls:
+// softplus(logaddexp(a, bg g)) is one log of a three-term sum under its
+// largest term; the row maximum is one redux.sync on the floats'
+// order-preserving integer keys; the row sum's butterfly runs beside the
+// carry scan.
+//
+// Their error budget (against the plain version, log K): ex2.approx and
+// lg2.approx err by about 2 units in the last place.  Logs stay natural, so
+// every stored log value rounds as the plain version's does.  exp(m - r)
+// is ex2 of (m - r) log2(e) carried in two floats (exp_sub): that product
+// rounded to one float errs by |m - r| 2^-24 relatively, and in a plain
+// torch model of the closure (la_log_numerics.py, 128 pairs a length) it
+// lifted log K by 6e-5 at 256 columns to 3.3e-4 at 700 on average, and
+// one pair by 3.6e-3; carried in two floats, 6.1e-5 at most.  exp(m - r)
+// keeps its subnormal results (ex2.approx without .ftz), as torch.exp does:
+// a closure summed from subnormal terms can reach TINY, and flushing them
+// drops log K by 0.036 at 400 x 400 on average (la_log_numerics.py).  log
+// an and log rs take the exponent exactly and the SFU only on the
+// mantissa.  Past 400 columns some pairs are ill-conditioned: any change
+// of rounding, f64 too, moves their log K by 1e-3 and more.  Past 512 rows
+// or columns the one-warp kernel, which repeats the plain version's
+// arithmetic, runs.
+
 // C interface: each entry point returns cudaGetLastError() after its launch.
 
 #include <cuda_runtime.h>
@@ -372,16 +413,288 @@ int launch(const float* p0, const float* p1, const int* lx, const int* ly,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The log kernels K2 and K5 on a lane geometry (P lanes of C columns a pair).
+
+constexpr float L2E = 1.4426950408889634f;  // log2(e)
+constexpr float L2E_LO = 1.925963033500011e-08f;  // log2(e) - L2E
+constexpr float LN2 = 0.6931471805599453f;
+
+// 2^x on the SFU; results below the smallest normal f32 flush to 0
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// 2^x on the SFU, keeping subnormal results
+__device__ __forceinline__ float ex2_sub(float x) {
+  float y;
+  asm("ex2.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// e^x for x <= 0 on the SFU, keeping subnormal results: x log2(e) as t + d,
+// t its rounding, and 2^(t + d) = 2^t (1 + d ln 2) up to (d ln 2)^2 / 2,
+// below 2^-34 since |d| <= 2^-24 |t|
+__device__ __forceinline__ float exp_sub(float x) {
+  const float t = x * L2E;
+  const float d = fmaf(x, L2E, -t) + x * L2E_LO;
+  const float y = ex2_sub(t);
+  return fmaf(y, d * LN2, y);
+}
+
+// log2 x on the SFU, for x in [1, 4)
+__device__ __forceinline__ float lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// log2 x for a normal x > 0 of any size: the exponent exactly (a float
+// built from its bits, no conversion instruction) plus the SFU's log2 of
+// the mantissa in [1, 2), where its error is smallest
+__device__ __forceinline__ float lg2_wide(float x) {
+  const int b = __float_as_int(x);
+  const float e = __int_as_float(0x4B000000 | (b >> 23)) - 8388735.f;  // 2^23 + 127
+  return e + lg2(__int_as_float((b & 0x007fffff) | 0x3f800000));
+}
+
+// logaddexp on the SFU (natural logs, as the plain version keeps them)
+__device__ __forceinline__ float lae(float x, float y) {
+  const float hi = fmaxf(x, y), lo = fminf(x, y);
+  return fmaf(LN2, lg2(1.f + ex2((lo - hi) * L2E)), hi);
+}
+
+// f32 <-> a signed int of the same order, so that redux.sync takes the max
+__device__ __forceinline__ int order_key(float v) {
+  const int b = __float_as_int(v);
+  return b ^ ((b >> 31) & 0x7fffffff);
+}
+
+__device__ __forceinline__ float order_value(int k) {
+  return __int_as_float(k ^ ((k >> 31) & 0x7fffffff));
+}
+
+// One pair a block of P threads, C columns a thread: thread q owns columns
+// [q C, q C + C).  P/32 warps join through shared memory, two barriers a row.
+template <int P, int C, bool FACTORED>
+__global__ void __launch_bounds__(P)
+la_log_lanes(const float* __restrict__ p0, const float* __restrict__ p1,
+             const int* __restrict__ lx, const int* __restrict__ ly,
+             int max_lx, int max_ly, int rank, Params prm, float* __restrict__ out) {
+  constexpr int W = P / 32;  // warps of the pair
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int b = blockIdx.x;
+  const int nx = min(max(lx[b], 0), max_lx);
+  const int ny = min(max(ly[b], 0), max_ly);
+  const int q = threadIdx.x;
+  const int j0 = q * C;
+  if (ny == 0) {  // every cell masked: log K = log 1
+    if (q == 0) out[b] = 0.f;
+    return;
+  }
+
+  float bp[C];  // be^(c+1)
+  bp[0] = prm.be;
+#pragma unroll
+  for (int c = 1; c < C; ++c) bp[c] = bp[c - 1] * prm.be;
+  const float beC = bp[C - 1];
+  // W > 1: be^(32 C) (a warp's columns), be^(32 C - 1), be^(lane C)
+  float beW = 1.f, bePre = 1.f, beLane = 1.f;
+  if (W > 1) {
+    for (int t = 0; t < 32; ++t) beW *= beC;
+    bePre = beW / prm.be;
+    for (int t = 0; t < lane; ++t) beLane *= beC;
+  }
+  __shared__ float sh_max[W], sh_end[W], sh_pre[W], sh_last[W], sh_sum[W];
+
+  // ---- the pair's operands: fy in registers; row i + 1 loaded during row i
+  const float ab = prm.alpha * prm.beta;
+  float fyr[C][MAX_RANK];
+  float fxn[MAX_RANK];
+  float sn[C], s2n[C];
+  const size_t xbase = (size_t)b * max_lx;
+  if constexpr (FACTORED) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int j = j0 + c;
+      const float* fy = p1 + ((size_t)b * max_ly + j) * rank;
+#pragma unroll
+      for (int k = 0; k < MAX_RANK; ++k) fyr[c][k] = (j < ny && k < rank) ? fy[k] : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < MAX_RANK; ++k) fxn[k] = (nx > 0 && k < rank) ? p0[xbase * rank + k] : 0.f;
+  } else {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int j = j0 + c;
+      sn[c] = (nx > 0 && j < ny) ? p0[xbase * max_ly + j] : 0.f;
+      s2n[c] = (nx > 0 && j < ny && p1 != nullptr) ? p1[xbase * max_ly + j] : 0.f;
+    }
+  }
+
+  float a[C], g[C];  // log a, log g
+#pragma unroll
+  for (int c = 0; c < C; ++c) a[c] = g[c] = NEG;
+  float acc = NEG;  // log of the sum of m so far, uniform over the pair
+
+  for (int i = 0; i < nx; ++i) {
+    // ---- log emission of row i (its operands were loaded a row earlier)
+    float le[C];
+    if constexpr (FACTORED) {
+      float fxs[MAX_RANK];
+#pragma unroll
+      for (int k = 0; k < MAX_RANK; ++k) fxs[k] = fxn[k] * (k < 2 ? ab : prm.beta);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        float s = fxs[0] * fyr[c][0];
+#pragma unroll
+        for (int k = 1; k < MAX_RANK; ++k) s = fmaf(fxs[k], fyr[c][k], s);
+        le[c] = s;
+      }
+      const size_t row = (xbase + min(i + 1, nx - 1)) * rank;
+#pragma unroll
+      for (int k = 0; k < MAX_RANK; ++k) fxn[k] = k < rank ? p0[row + k] : 0.f;
+    } else {
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        le[c] = prm.beta * (p1 != nullptr ? fmaf(prm.alpha, sn[c], s2n[c]) : sn[c]);
+      const size_t row = (xbase + min(i + 1, nx - 1)) * max_ly;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int j = j0 + c;
+        sn[c] = j < ny ? p0[row + j] : 0.f;
+        s2n[c] = (j < ny && p1 != nullptr) ? p1[row + j] : 0.f;
+      }
+    }
+
+    // ---- m = le + log(1 + a + bg g), the largest of the three terms
+    // factored out: one lg2 and two ex2 a cell
+    float m[C];
+    float r = NEG;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float x = a[c], y = prm.lbg + g[c];
+      const float hi = fmaxf(x, y), lo = fminf(x, y);
+      const float h = fmaxf(hi, 0.f), o = fminf(hi, 0.f);
+      const float sp = fmaf(LN2, lg2(1.f + ex2((o - h) * L2E) + ex2((lo - h) * L2E)), h);
+      m[c] = j0 + c < ny ? le[c] + sp : NEG;
+      r = fmaxf(r, m[c]);
+    }
+    r = order_value(__reduce_max_sync(FULL, order_key(r)));
+    if (W > 1) {
+      if (lane == 0) sh_max[warp] = r;
+      __syncthreads();
+#pragma unroll
+      for (int t = 0; t < W; ++t) r = fmaxf(r, sh_max[t]);
+    }
+
+    // ---- v = exp(m - r); its row sum and the closure scan side by side
+    float v[C], z[C];
+    float rs = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      v[c] = exp_sub(m[c] - r);
+      rs += v[c];
+    }
+    z[0] = v[0];
+#pragma unroll
+    for (int c = 1; c < C; ++c) z[c] = fmaf(prm.be, z[c - 1], v[c]);
+    float x = z[C - 1], p = beC;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const float y = __shfl_up_sync(FULL, x, d);
+      rs += __shfl_xor_sync(FULL, rs, d);
+      if (lane >= d) x = fmaf(p, y, x);
+      p *= p;
+    }
+    float zin = __shfl_up_sync(FULL, x, 1);  // z at the column before the chunk
+    if (lane == 0) zin = 0.f;
+    float m_edge = 0.f, z2_edge = 0.f;  // lane 0 of warp w > 0: from warp w - 1
+    if (W > 1) {
+      if (lane == 31) {
+        sh_end[warp] = x;
+        if constexpr (C > 1) sh_pre[warp] = fmaf(bp[C - 2], zin, z[C - 2]);
+        else sh_pre[warp] = zin;
+        sh_last[warp] = v[C - 1];
+        sh_sum[warp] = rs;
+      }
+      __syncthreads();
+      float zw = 0.f, zw_prev = 0.f;  // carry into this warp, into the one before
+      for (int t = 0; t < warp; ++t) {
+        zw_prev = zw;
+        zw = fmaf(beW, zw, sh_end[t]);
+      }
+      rs = 0.f;
+#pragma unroll
+      for (int t = 0; t < W; ++t) rs += sh_sum[t];
+      zin = fmaf(beLane, zw, zin);
+      if (warp > 0) {
+        m_edge = sh_last[warp - 1];
+        z2_edge = fmaf(bePre, zw_prev, sh_pre[warp - 1]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) z[c] = fmaf(bp[c], zin, z[c]);
+    // an = v @ Tu: an[j] = v[j-1] + bg z[j-2]
+    float m_prev = __shfl_up_sync(FULL, v[C - 1], 1);
+    float z_prev2;
+    if constexpr (C > 1) z_prev2 = __shfl_up_sync(FULL, z[C - 2], 1);
+    else z_prev2 = __shfl_up_sync(FULL, zin, 1);
+    if (lane == 0) {
+      m_prev = m_edge;
+      z_prev2 = z2_edge;
+    }
+    float an[C];
+    an[0] = fmaf(prm.bg, z_prev2, m_prev);
+    if constexpr (C > 1) an[1] = fmaf(prm.bg, zin, v[0]);
+#pragma unroll
+    for (int c = 2; c < C; ++c) an[c] = fmaf(prm.bg, z[c - 2], v[c - 1]);
+
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const float gn = lae(prm.lbe + g[c], a[c]);
+      a[c] = an[c] >= TINY ? fmaf(LN2, lg2_wide(an[c]), r) : NEG;
+      g[c] = gn;
+    }
+    acc = lae(acc, fmaf(LN2, lg2_wide(fmaxf(rs, TINY)), r));
+  }
+  if (q == 0) out[b] = lae(0.f, acc);
+}
+
+// lanes 0: the one-warp kernel (and its one-block-a-pair form past 1024
+// columns); otherwise la_log_lanes<lanes, cols>, which needs lanes * cols >= max_ly
+template <bool FACTORED>
+int launch_log(const float* p0, const float* p1, const int* lx, const int* ly,
+               int batch, int max_lx, int max_ly, int rank, int lanes, int cols,
+               Params prm, float* out, cudaStream_t stream) {
+  if (lanes == 0)
+    return launch<true, FACTORED>(p0, p1, lx, ly, batch, max_lx, max_ly, rank, prm, out, stream);
+  if (lanes * cols < max_ly) return (int)cudaErrorInvalidValue;
+#define LA_LOG_CASE(PP, CC)                                                         \
+  if (lanes == PP && cols == CC) {                                                  \
+    la_log_lanes<PP, CC, FACTORED><<<batch, PP, 0, stream>>>(p0, p1, lx, ly, max_lx, \
+                                                             max_ly, rank, prm, out); \
+    return (int)cudaGetLastError();                                                 \
+  }
+  LA_LOG_CASE(32, 1) LA_LOG_CASE(32, 2) LA_LOG_CASE(32, 4)  // ops/la.py LOG_GEOMETRIES
+  LA_LOG_CASE(128, 2) LA_LOG_CASE(128, 4)
+#undef LA_LOG_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
+// the log kernels take the lane geometry (lanes, cols); lanes 0 is the one-warp kernel
 extern "C" int la_log_factored_f32(
     const float* fx, const float* fy, const int* lx, const int* ly,
-    int batch, int max_lx, int max_ly, int rank,
+    int batch, int max_lx, int max_ly, int rank, int lanes, int cols,
     float alpha, float beta, float bg, float be, float lbg, float lbe,
     float* out, cudaStream_t stream) {
   if (rank < 2 || rank > MAX_RANK) return (int)cudaErrorInvalidValue;
-  return launch<true, true>(fx, fy, lx, ly, batch, max_lx, max_ly, rank,
-                            Params{alpha, beta, bg, be, lbg, lbe}, out, stream);
+  return launch_log<true>(fx, fy, lx, ly, batch, max_lx, max_ly, rank, lanes, cols,
+                          Params{alpha, beta, bg, be, lbg, lbe}, out, stream);
 }
 
 extern "C" int la_exp_factored_f32(
@@ -405,9 +718,9 @@ extern "C" int la_exp_f32(
 
 extern "C" int la_log_f32(
     const float* s0, const float* s1, const int* lx, const int* ly,
-    int batch, int max_lx, int max_ly,
+    int batch, int max_lx, int max_ly, int lanes, int cols,
     float alpha, float beta, float bg, float be, float lbg, float lbe,
     float* out, cudaStream_t stream) {
-  return launch<true, false>(s0, s1, lx, ly, batch, max_lx, max_ly, 0,
-                             Params{alpha, beta, bg, be, lbg, lbe}, out, stream);
+  return launch_log<false>(s0, s1, lx, ly, batch, max_lx, max_ly, 0, lanes, cols,
+                           Params{alpha, beta, bg, be, lbg, lbe}, out, stream);
 }

@@ -37,10 +37,16 @@ Dispatch: a CPU tensor takes the wrapper's plain version
 (``<wrapper>_reference``: the closure with an explicit Tu product, one
 ``bmm`` row at a time); a CUDA tensor launches the kernel in
 ``stem_kernel_torch/csrc/la_dp.cu`` or raises.  Nothing falls back.  Each
-wrapper counts its kernel launches in ``<wrapper>.launches``.
+wrapper counts its kernel launches in ``<wrapper>.launches``.  The log
+kernels (K2, K5) run on a lane geometry, lanes a pair by columns a lane,
+that :func:`log_route` picks from the padded shape (``LOG_ROUTE``, placed
+by ``chip_smoke.py``'s geometry table); :func:`la_log_factored_at` and
+:func:`la_log_at` launch a given one.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -50,19 +56,46 @@ NEG = -1e30  # log of an empty cell; never -inf, so logaddexp never meets inf - 
 TINY = float(torch.finfo(torch.float32).tiny)  # smallest normal f32
 MAX_RANK = 6  # factor slots of the factored kernels
 MAX_LY = 32768  # the CUDA kernel: 32 warps of 1024 columns (csrc/la_dp.cu); the CPU has no limit
+# (largest padded width max_ly, lanes, columns) the log kernels K2 and K5
+# take on the card, placed by chip_smoke.py's geometry table (phase 11);
+# past the last row the one-warp kernel, which also takes every width past
+# 1024 columns
+LOG_ROUTE = ((32, 32, 1), (64, 32, 2), (128, 32, 4), (256, 128, 2), (512, 128, 4))
+# the lane geometries (lanes a pair, columns a lane) that the library holds
+# (csrc/la_dp.cu, la_log_lanes): the route's; (0, 0) is the one-warp kernel
+LOG_GEOMETRIES = tuple((lanes, cols) for _, lanes, cols in LOG_ROUTE)
+# The lane kernels take pairs up to 512 rows and columns, the longest that
+# chip_smoke.py's phase 6 holds them to (256 pairs of 384-512).  Past that
+# the one-warp kernel, which repeats the plain version's arithmetic, runs:
+# there two f32 evaluations of log K drift 1e-3 and more apart on some
+# pairs, the plain version and an f64 one too (la_log_numerics.py).
+LANE_MAX_LEN = 512
 
 
 def _scalars(beta, gap, ext) -> dict[str, float]:
     """beta, log bg, log be, bg, be as float32 values (Python floats)."""
-    b = torch.tensor(float(beta), dtype=torch.float32)
-    lbg = b * torch.tensor(float(gap), dtype=torch.float32)
-    lbe = b * torch.tensor(float(ext), dtype=torch.float32)
+    return _scalars_of(float(beta), float(gap), float(ext))
+
+
+@functools.cache
+def _scalars_of(beta: float, gap: float, ext: float) -> dict[str, float]:
+    """:func:`_scalars`, cached by value: a Gram asks once a batch for the
+    same three numbers, and the torch scalar ops cost more host time than
+    a short kernel.  Callers read the dict and never change it."""
+    b = torch.tensor(beta, dtype=torch.float32)
+    lbg = b * torch.tensor(gap, dtype=torch.float32)
+    lbe = b * torch.tensor(ext, dtype=torch.float32)
     return {"beta": b.item(), "lbg": lbg.item(), "lbe": lbe.item(),
             "bg": torch.exp(lbg).item(), "be": torch.exp(lbe).item()}
 
 
-def _f32(x: float) -> float:
-    return torch.tensor(float(x), dtype=torch.float32).item()
+def _f32(x) -> float:
+    return _f32_of(float(x))
+
+
+@functools.cache
+def _f32_of(x: float) -> float:
+    return torch.tensor(x, dtype=torch.float32).item()
 
 
 def u_closure_matrix(log_bg: float, log_be: float, n: int, *, device) -> torch.Tensor:
@@ -237,6 +270,18 @@ def _check_scores(scores, scores2, lx, ly) -> None:
 
 # ------------------------------------------------------------------ launch
 
+def log_route(max_lx: int, max_ly: int) -> tuple[int, int]:
+    """(lanes, columns a lane) of the log kernels for a batch padded to
+    ``max_lx`` rows and ``max_ly`` columns; (0, 0) is the one-warp kernel.  A
+    pair's bits depend on the geometry, so on the padded shape, never on
+    the batch."""
+    if max_lx <= LANE_MAX_LEN:
+        for limit, lanes, cols in LOG_ROUTE:
+            if max_ly <= limit:
+                return lanes, cols
+    return 0, 0
+
+
 def _launch(wrapper, entry: str, ptrs: list, lx, ly, dims: list, floats: list,
             dev) -> torch.Tensor:
     """Run one entry point of the library on the current stream; (B,) f32."""
@@ -254,28 +299,39 @@ def _launch(wrapper, entry: str, ptrs: list, lx, ly, dims: list, floats: list,
     return out
 
 
-def _factored(wrapper, entry, reference, fx, fy, lx, ly, alpha, beta, gap, ext):
+def _geometry_dims(geometry, max_lx: int, max_ly: int) -> list:
+    """[lanes, cols] of a log kernel's launch: ``geometry``, or the route's."""
+    lanes, cols = log_route(max_lx, max_ly) if geometry is None else geometry
+    if (lanes, cols) != (0, 0) and ((lanes, cols) not in LOG_GEOMETRIES or lanes * cols < max_ly):
+        raise ValueError(f"no log kernel of {lanes} lanes x {cols} columns for Ly = {max_ly}")
+    return [lanes, cols]
+
+
+def _factored(wrapper, entry, reference, fx, fy, lx, ly, alpha, beta, gap, ext, *,
+              log: bool = False, geometry=None):
     _check_factored(fx, fy, lx, ly)
     if fx.device.type == "cpu":
         return reference(fx, fy, lx, ly, alpha, beta, gap, ext)
     sc = _scalars(beta, gap, ext)
     bsz, max_lx, rank = fx.shape
+    geo = _geometry_dims(geometry, max_lx, fy.shape[1]) if log else []
     return _launch(wrapper, entry, [fx.data_ptr(), fy.data_ptr()], lx, ly,
-                   [bsz, max_lx, fy.shape[1], rank],
+                   [bsz, max_lx, fy.shape[1], rank, *geo],
                    [_f32(alpha), sc["beta"], sc["bg"], sc["be"], sc["lbg"], sc["lbe"]],
                    fx.device)
 
 
 def _materialised(wrapper, entry, reference, scores, lx, ly, beta, gap, ext,
-                  scores2, alpha):
+                  scores2, alpha, *, log: bool = False, geometry=None):
     _check_scores(scores, scores2, lx, ly)
     if scores.device.type == "cpu":
         return reference(scores, lx, ly, beta, gap, ext, scores2=scores2, alpha=alpha)
     sc = _scalars(beta, gap, ext)
     bsz, max_lx, max_ly = scores.shape
     s2 = None if scores2 is None else scores2.data_ptr()
+    geo = _geometry_dims(geometry, max_lx, max_ly) if log else []
     return _launch(wrapper, entry, [scores.data_ptr(), s2], lx, ly,
-                   [bsz, max_lx, max_ly],
+                   [bsz, max_lx, max_ly, *geo],
                    [_f32(alpha), sc["beta"], sc["bg"], sc["be"], sc["lbg"], sc["lbe"]],
                    scores.device)
 
@@ -284,7 +340,7 @@ def la_log_factored(fx, fy, lx, ly, alpha, beta, gap, ext) -> torch.Tensor:
     """log K of the LA kernel on rank-K factors (K2).  fx (B, Lx, K),
     fy (B, Ly, K) float32 with 2 <= K <= 6; lx, ly (B,) int32.  Returns (B,)."""
     return _factored(la_log_factored, "la_log_factored_f32", la_log_factored_reference,
-                     fx, fy, lx, ly, alpha, beta, gap, ext)
+                     fx, fy, lx, ly, alpha, beta, gap, ext, log=True)
 
 
 def la_exp_factored(fx, fy, lx, ly, alpha, beta, gap, ext) -> torch.Tensor:
@@ -305,7 +361,26 @@ def la_log(scores, lx, ly, beta, gap, ext, *, scores2=None, alpha=1.0) -> torch.
     """log K of the LA kernel on a materialised score tensor (K5); as
     :func:`la_exp`, overflow-safe at any length."""
     return _materialised(la_log, "la_log_f32", la_log_reference, scores, lx, ly,
-                         beta, gap, ext, scores2, alpha)
+                         beta, gap, ext, scores2, alpha, log=True)
+
+
+def la_log_factored_at(geometry, fx, fy, lx, ly, alpha, beta, gap, ext) -> torch.Tensor:
+    """:func:`la_log_factored` on the card at ``geometry`` = (lanes, cols),
+    or (0, 0) for the one-warp kernel, whatever the route: how the geometry table is
+    measured.  Counts in ``la_log_factored.launches``."""
+    if fx.device.type != "cuda":
+        raise ValueError("a lane geometry is a CUDA launch; the CPU has one plain version")
+    return _factored(la_log_factored, "la_log_factored_f32", la_log_factored_reference,
+                     fx, fy, lx, ly, alpha, beta, gap, ext, log=True, geometry=geometry)
+
+
+def la_log_at(geometry, scores, lx, ly, beta, gap, ext, *, scores2=None,
+              alpha=1.0) -> torch.Tensor:
+    """:func:`la_log` on the card at ``geometry``, as :func:`la_log_factored_at`."""
+    if scores.device.type != "cuda":
+        raise ValueError("a lane geometry is a CUDA launch; the CPU has one plain version")
+    return _materialised(la_log, "la_log_f32", la_log_reference, scores, lx, ly, beta, gap,
+                         ext, scores2, alpha, log=True, geometry=geometry)
 
 
 for _w in (la_log_factored, la_exp_factored, la_exp, la_log):

@@ -178,13 +178,82 @@ def _case_factored(kind):
     return tfn(*_t(fx, fy, lx, ly), ALPHA, *PARAMS), want, 1e-4
 
 
+_EDGE_LY = (31, 32, 33, 64, 65, 128, 129)  # the log kernels' chunk and lane-geometry edges
+_LOG_EDGE_CASES = ([f"K2 rank {r} Ly={w}" for w in _EDGE_LY for r in (2, 6)]
+                   + [f"K5 Ly={w}" for w in _EDGE_LY]
+                   + ["K5 two slabs Ly=65", "K5 two slabs Ly=129", "K2 drop", "K5 drop",
+                      "K2 long"])
+
+
+def _log_edge_operands(case):
+    """(numpy operands, scores2) of a log-kernel case: K2 factors
+    (fx, fy, lx, ly) or K5 scores (s, lx, ly).  Edge widths have Lx != Ly
+    and ragged lengths that include the full pad; "drop" scores its first 15
+    rows at about +3 a cell and the rest 40+ nats lower, so that the gap
+    state carries mass far below the later rows' maxima; "long" is the
+    long-score case (15 a cell, 160 x 160, log K 326.0) as factors."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    beta = PARAMS[0]
+    if "drop" in case:
+        b, nx, ny, strong = 3, 50, 40, 15
+        lx, ly = np.array([50, 41, 50], np.int32), np.array([40, 40, 33], np.int32)
+        if case.startswith("K2"):
+            fx = rng.normal(size=(b, nx, 6)) * 0.3
+            fy = rng.normal(size=(b, ny, 6)) * 0.3
+            fx[:, :strong, 2] = 3.0 / beta
+            fx[:, strong:, 2] = -rng.uniform(40.0, 45.0, (b, nx - strong)) / beta
+            fy[:, :, 2] = rng.uniform(0.9, 1.1, (b, ny))
+            return (fx.astype(np.float32), fy.astype(np.float32), lx, ly), None
+        s = rng.normal(size=(b, nx, ny)) * 5.0
+        s[:, :strong] += 3.0 / beta
+        s[:, strong:] -= 42.0 / beta
+        return (s.astype(np.float32), lx, ly), None
+    if case == "K5 long":  # the case of test_plain_versions_match_pallas_interpret[K5 log long]
+        s = np.full((2, 160, 160), 15.0, np.float32)
+        return (s, np.array([160, 120], np.int32), np.array([160, 160], np.int32)), None
+    if "long" in case:
+        fx = np.zeros((2, 160, 2), np.float32)
+        fx[:, :, 0] = 15.0 / ALPHA
+        fy = np.zeros((2, 160, 2), np.float32)
+        fy[:, :, 0] = 1.0
+        return (fx, fy, np.array([160, 120], np.int32), np.array([160, 160], np.int32)), None
+    w = int(case.split("Ly=")[1])
+    rank = 2 if "rank 2" in case else 6
+    lx_max = w + 9 if rank == 2 else max(w - 7, 3)
+    lx = np.array([lx_max, rng.integers(1, lx_max + 1), rng.integers(1, lx_max + 1), 1], np.int32)
+    ly = np.array([w, rng.integers(1, w + 1), 1, w], np.int32)
+    if case.startswith("K2"):
+        fx, fy = ((rng.normal(size=(4, n, rank)) * 0.5).astype(np.float32) for n in (lx_max, w))
+        return (fx, fy, lx, ly), None
+    s = rng.uniform(-20.0, 25.0, (4, lx_max, w)).astype(np.float32)
+    s2 = rng.uniform(-10.0, 10.0, s.shape).astype(np.float32) if "two slabs" in case else None
+    return (s, lx, ly), s2
+
+
+def _case_log_edge(case):
+    """(port plain value, JAX interpret value, rtol) of a log-kernel case."""
+    ops, s2 = _log_edge_operands(case)
+    if case.startswith("K2"):
+        want = jp.la_log_factored(*_j(*ops), ALPHA, *PARAMS, block_b=8, interpret=True)
+        return tl.la_log_factored_reference(*_t(*ops), ALPHA, *PARAMS), want, 1e-4
+    kw_j, kw_t = {}, {}
+    if s2 is not None:
+        kw_j = {"scores2": jnp.asarray(s2), "alpha": ALPHA}
+        kw_t = {"scores2": torch.as_tensor(s2), "alpha": ALPHA}
+    want = jp.la_log_pallas(*_j(*ops), *PARAMS, block_b=8, interpret=True, **kw_j)
+    return tl.la_log_reference(*_t(*ops), *PARAMS, **kw_t), want, 1e-4
+
+
 @pytest.mark.parametrize("case", ["K2 log factored", "K3 exp factored", "K4 exp",
                                   "K4 exp affine", "K5 log", "K5 log affine",
-                                  "K5 log long"])
+                                  "K5 log long", *_LOG_EDGE_CASES])
 def test_plain_versions_match_pallas_interpret(case):
-    """Each kernel's plain version against its Pallas function (interpret)."""
+    """Each kernel's plain version against its Pallas function (interpret);
+    the log kernels also at the cases of :func:`_log_edge_operands`."""
     kind = "exp" if " exp" in case else "log"
-    if "factored" in case:
+    if case in _LOG_EDGE_CASES:
+        got, want, rtol = _case_log_edge(case)
+    elif "factored" in case:
         got, want, rtol = _case_factored(kind)
     else:
         got, want, rtol = _case_materialised("long" if "long" in case else kind,
@@ -359,6 +428,86 @@ def test_cuda_kernel_matches_plain_version(kernel):
         want = reference(*args, **kw).cpu().numpy()
         np.testing.assert_allclose(got, want, **({"atol": 3e-3} if "log" in kernel
                                                  else {"rtol": 1e-3}))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [*_LOG_EDGE_CASES, "K5 long"])
+def test_cuda_log_kernel_matches_plain_version(case):
+    """The log kernels K2 and K5 on the card against their plain versions
+    at the cases of :func:`_log_edge_operands`, within the 3e-3 gate: on the
+    route's lane geometry (one launch, counted), on every other geometry
+    that holds the width and on the one-warp kernel; and the first 3 pairs alone
+    equal to their values inside the batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
+    ops, s2 = _log_edge_operands(case)
+    ops = [t.cuda() for t in _t(*ops)]
+    if case.startswith("K2"):
+        wrapper, at = tl.la_log_factored, tl.la_log_factored_at
+        reference = tl.la_log_factored_reference
+        scalars, kw, width = (ALPHA, *PARAMS), {}, ops[1].shape[1]
+    else:
+        wrapper, at, reference = tl.la_log, tl.la_log_at, tl.la_log_reference
+        kw = {} if s2 is None else {"scores2": torch.as_tensor(s2).cuda(), "alpha": ALPHA}
+        scalars, width = PARAMS, ops[0].shape[2]
+    want = reference(*ops, *scalars, **kw).cpu().numpy()
+    launches = wrapper.launches
+    got = wrapper(*ops, *scalars, **kw).cpu().numpy()
+    assert wrapper.launches == launches + 1
+    np.testing.assert_allclose(got, want, atol=3e-3)
+    kw3 = {k: v[:3].contiguous() if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    alone = wrapper(*[o[:3].contiguous() for o in ops], *scalars, **kw3).cpu().numpy()
+    assert np.array_equal(alone, got[:3])
+    for geo in [(0, 0)] + [g for g in tl.LOG_GEOMETRIES if g[0] * g[1] >= width]:
+        np.testing.assert_allclose(at(geo, *ops, *scalars, **kw).cpu().numpy(), want, atol=3e-3)
+
+
+def test_la_log_numerics_models_start_from_the_plain_version():
+    """la_log_numerics.py's closure with no change is K2's plain version bit
+    for bit, and each model of a lane-kernel step stays near it on short
+    ragged pairs."""
+    import la_log_numerics as ln
+
+    rng = np.random.default_rng(7)
+    fx, fy = (torch.as_tensor((rng.normal(size=(4, n, 6)) * 0.5).astype(np.float32))
+              for n in (40, 48))
+    lx = torch.tensor([40, 31, 12, 1], dtype=torch.int32)
+    ly = torch.tensor([48, 40, 5, 48], dtype=torch.int32)
+    sc = tl._scalars(*PARAMS)
+    emit = tl._factored_emitter(fx, fy, ALPHA, sc)
+    plain = tl.la_log_factored_reference(fx, fy, lx, ly, ALPHA, *PARAMS)
+    assert torch.equal(ln.log_closure(emit, lx, ly, 40, 48, sc), plain)
+    for variant in ("exp2", "exp_sub", "softplus3", "log2", "exp_sub+softplus3+log2", "f64"):
+        got = ln.log_closure(emit, lx, ly, 40, 48, sc, variant).double().numpy()
+        np.testing.assert_allclose(got, plain.double().numpy(), atol=1e-4)
+
+
+def test_log_route_covers_every_width():
+    """Every padded shape up to LANE_MAX_LEN rows and columns takes a lane
+    geometry the library holds and that holds the width; longer or wider
+    ones take the one-warp kernel."""
+    for w in range(1, tl.LANE_MAX_LEN + 1):
+        lanes, cols = tl.log_route(tl.LANE_MAX_LEN, w)
+        assert (lanes, cols) in tl.LOG_GEOMETRIES and lanes * cols >= w
+    for rows, w in ((1, tl.LANE_MAX_LEN + 1), (1, 1024), (1, tl.MAX_LY),
+                    (tl.LANE_MAX_LEN + 1, 120), (5000, 1)):
+        assert tl.log_route(rows, w) == (0, 0)
+
+
+@pytest.mark.parametrize("bad", ["K2 on the CPU", "K5 on the CPU", "too narrow",
+                                 "not in the library"])
+def test_lane_geometry_launches_are_checked(bad):
+    fx, fy = torch.zeros(2, 5, 6), torch.zeros(2, 4, 6)
+    lx = torch.tensor([5, 3], dtype=torch.int32)
+    ly = torch.tensor([4, 1], dtype=torch.int32)
+    calls = {
+        "K2 on the CPU": lambda: tl.la_log_factored_at((32, 1), fx, fy, lx, ly, ALPHA, *PARAMS),
+        "K5 on the CPU": lambda: tl.la_log_at((32, 1), torch.zeros(2, 5, 4), lx, ly, *PARAMS),
+        "too narrow": lambda: tl._geometry_dims((32, 1), 10, 33),
+        "not in the library": lambda: tl._geometry_dims((16, 4), 10, 64),
+    }
+    with pytest.raises(ValueError):
+        calls[bad]()
 
 
 @pytest.mark.cuda
