@@ -49,28 +49,36 @@ Phases (the first failure exits non-zero; nothing is caught):
    path batches padded 64 columns wider, which take another lane geometry
    (its values within 3e-3 of the unpadded ones); K2 on 256 pairs of
    384-512 rows and columns (the lane kernels' longest) and at 600 x 600
-   (the one-warp kernel past them); the first 3 pairs alone must equal
-   their values inside the batch bit for bit.  K2 at 1000 x 1000 is printed
-   and not held to the gate: f32 log K is good to about 1e-2 there, the
-   plain version's too (PERF.md, open questions);
+   (the one-warp kernel past them); the exp kernels K3 and K4 at the same
+   widths (Lx != Ly; K3 at ranks 2 and 6, K4 on one slab and on two; log
+   emissions -3..-1, K up to about 1e16), on 256 pairs of 384-512 (log
+   emissions -8..-3), on an overflow batch (non-finite exactly where the
+   plain version is, the finite pairs within 1e-3 rel) and on their path
+   batches padded 64 columns wider (within 1e-3 rel of the unpadded
+   values); the first 3 pairs alone must equal their values inside the
+   batch bit for bit.  K2 at 1000 x 1000 is printed and not held to the
+   gate: f32 log K is good to about 1e-2 there, the plain version's too
+   (PERF.md, open questions);
 7. BPLA path: ``bpla_kernel`` train on the corpus (K2), ``svm_tools train``,
    predict on the 40 held-out sequences, and ``--device cpu`` against
    ``--device cuda`` on 8 sequences within the 1.3e-3 band;
 8. LA path: ``la_kernel`` train on 100 synthetic proteins (a 60-residue
-   core, 10% mutations, lengths 50-80) and 100 residue shuffles (K4), svm
-   train, predict on 40 held-out proteins, cpu against cuda on 8 proteins;
+   core, 10% mutations, lengths 50-80) and 100 residue shuffles (K4, whose
+   lane kernel must run in train and in predict), svm train, predict on 40
+   held-out proteins, cpu against cuda on 8 proteins;
 9. flagship forward: the normalised exp Gram of ``BPLAKernel`` through
-   ``PairKernelEngine`` on 200 random-profile examples of length 32-64 (K3);
+   ``PairKernelEngine`` on 200 random-profile examples of length 32-64 (K3,
+   on its lane kernel);
 10. log protein Gram: ``BPLAKernel(BLOSUM62, no_bp=True).log_value`` through
    ``PairKernelEngine`` on the proteins (rank 22, so K5), which must agree
    with the LA path's Gram;
 11. K2-K5 times against their plain versions (CUDA events, plain, kernel,
-   kernel, plain), at the paths' shapes and at Ly = 1500, and the BPLA and
-   LA Gram rates; the log kernels' lane-geometry table (device ms a call,
+   kernel, plain), at the paths' shapes and at Ly = 1500, and the BPLA, LA
+   and flagship Gram rates; the lane-geometry tables (device ms a call,
    graph replay, of every geometry that holds the width, and the one-warp
-   kernel, at B = 256 on the two path batches and on K2 factors of widths
-   32-1024: the times that place ``la.LOG_ROUTE``), and K2 and K5 at
-   B = 4096;
+   kernel, at B = 256 on the four path batches and on K2 and K3 factors of
+   widths 32-1024: the times that place ``la.LOG_ROUTE`` and
+   ``la.EXP_ROUTE``), and K2-K5 at B = 4096;
 12. K6 parity: the banded full stem kernel against its plain version at full
    width (n = 301, band 16, B = 16) on the config-3 generator of
    ``bench_full200.py`` (80-300 nt hairpins): the square case, lx != ly,
@@ -108,8 +116,8 @@ calls, host time between launches included; ``device_ms`` the same calls
 captured in a CUDA graph and replayed under CUDA events, except K6's: its
 wrapper reads max(lx) on the host, so its ``device_ms`` is the summed time
 of the device's events under torch.profiler (null if the trace holds
-none).  K2 and K5 also list their largest error on the lane kernels and on the
-one-warp kernel apart.  The last line is ``{"ok": true, "device":
+none).  K2 and K5 also list their largest abs error on the lane kernels and on
+the one-warp kernel apart, K3 and K4 their largest rel error.  The last line is ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX.
 """
 
@@ -165,9 +173,11 @@ K1_PEAKS = {"f32": (PEAK_F32, 1), "3xtf32": (PEAK_TF32, 3), "bf16": (PEAK_BF16, 
 LONG_LY = 1500  # the LA kernels past one warp's 1024 columns
 EDGE_LY = (31, 32, 33, 64, 65, 128, 129)  # the log kernels' chunk and geometry edges
 EDGE_BATCH = 64  # pairs of those batches
-WIDER = 64  # columns a path batch is padded wider by, to take another lane geometry
-ROUTE_WIDTHS = (32, 64, 256, 512, 1024)  # K2's other widths in the geometry table
-BIG_BATCH = 4096  # the log kernels' large-batch times
+WIDER = 64  # step of the columns a path batch is padded wider by, to take another lane geometry
+ROUTE_WIDTHS = (32, 64, 128, 256, 512, 1024)  # K2's and K3's other widths in the geometry tables
+BIG_BATCH = 4096  # the LA kernels' large-batch times
+EXP_EDGE_LE = (-3.0, -1.0)  # log emissions of the exp kernels' edge cases: K up to ~1e16
+EXP_LONG_LE = (-8.0, -3.0)  # of their long cases (384-512 rows and columns): K ~ 3e3
 CAP_BATCH = 256  # K2 pairs at the lane kernels' longest
 PAST_CAP = 600  # a K2 batch past the lane kernels' 512 rows and columns
 ILL_LEN = 1000  # a K2 batch where f32 log K is good to about 1e-2 only
@@ -334,6 +344,91 @@ def la_edge_cases(rng: np.random.Generator, dev) -> list:
     return out
 
 
+def exp_factors(rng: np.random.Generator, b: int, nx: int, ny: int, rank: int, le: tuple,
+                dev) -> list:
+    """K3 factors (fx, fy) whose log emission lies about in ``le`` under BPLA's
+    alpha, beta: slot 2 (weight beta) carries it, slot 0 (alpha beta) at rank
+    2, the other slots noise of about 0.05."""
+    alpha, beta = BPLA[:2]
+    fx = rng.normal(size=(b, nx, rank)) * 0.3
+    fy = rng.normal(size=(b, ny, rank)) * 0.3
+    k, coef = (0, alpha * beta) if rank == 2 else (2, beta)
+    fx[:, :, k] = rng.uniform(0.9, 1.1, (b, nx))
+    fy[:, :, k] = rng.uniform(*le, (b, ny)) / coef
+    return [torch.as_tensor(f.astype(np.float32), device=dev) for f in (fx, fy)]
+
+
+def exp_scores(rng: np.random.Generator, b: int, nx: int, ny: int, le: tuple, dev,
+               two: bool = False) -> list:
+    """K4 scores whose log emission lies in ``le``: one slab under la_kernel's
+    beta, or two (s0, s1) under BPLA's alpha * s0 + s1, each carrying half."""
+    alpha, beta = BPLA[:2]
+    if not two:
+        return [torch.as_tensor((rng.uniform(*le, (b, nx, ny)) / PROT[0]).astype(np.float32),
+                                device=dev)]
+    return [torch.as_tensor((rng.uniform(*le, (b, nx, ny)) / (2 * c)).astype(np.float32),
+                            device=dev) for c in (alpha * beta, beta)]
+
+
+def la_exp_edge_cases(rng: np.random.Generator, dev) -> list:
+    """(key, label, operands, affine) of the exp kernels K3 and K4 at the padded
+    widths EDGE_LY, Lx != Ly: K3 at ranks 2 and 6, K4 on one slab and on two
+    (``affine``), log emissions in EXP_EDGE_LE; ragged lengths up to the pad."""
+    out = []
+    for w in EDGE_LY:
+        lx_max = w + 9
+        lx = torch.as_tensor(rng.integers(1, lx_max + 1, EDGE_BATCH).astype(np.int32), device=dev)
+        ly = torch.as_tensor(rng.integers(1, w + 1, EDGE_BATCH).astype(np.int32), device=dev)
+        lx[0], ly[0] = lx_max, w  # one pair at the full pad
+        for rank in (2, 6):
+            out.append(("K3", f"rank {rank}, Lx={lx_max} Ly={w}",
+                        exp_factors(rng, EDGE_BATCH, lx_max, w, rank, EXP_EDGE_LE, dev) + [lx, ly],
+                        False))
+        out.append(("K4", f"Lx={lx_max} Ly={w}",
+                    exp_scores(rng, EDGE_BATCH, lx_max, w, EXP_EDGE_LE, dev) + [lx, ly], False))
+        out.append(("K4", f"two slabs, Lx={lx_max} Ly={w}",
+                    exp_scores(rng, EDGE_BATCH, lx_max, w, EXP_EDGE_LE, dev, two=True) + [lx, ly],
+                    True))
+    return out
+
+
+def exp_overflow_emissions(rng: np.random.Generator) -> tuple:
+    """(log emissions (8, 40, 50), lx, ly) of the exp kernels' overflow batch:
+    pairs 0-2 finite (EXP_EDGE_LE); 3 emits +3 a cell, so the closure passes
+    the largest f32; 4 has one cell of 100, whose exp is inf; 5 one cell of
+    87.5 (e = 1e38) among cells of EXP_LONG_LE, finite; 6 emits 4..6 on 3 x 4
+    cells, finite; 7 emits +1 with ly = 0, so K = 1."""
+    le = rng.uniform(*EXP_EDGE_LE, (8, 40, 50))
+    le[3] = 3.0
+    le[4, 20, 30] = 100.0
+    le[5] = rng.uniform(*EXP_LONG_LE, (40, 50))
+    le[5, 10, 10] = 87.5
+    le[6] = rng.uniform(4.0, 6.0, (40, 50))
+    le[7] = 1.0
+    lx = np.array([40, 31, 17, 40, 40, 40, 3, 40], np.int32)
+    ly = np.array([50, 50, 26, 50, 50, 50, 4, 0], np.int32)
+    return le, lx, ly
+
+
+def la_overflow_cases(rng: np.random.Generator, dev) -> list:
+    """(key, label, operands, False) of K3 and K4 on the overflow batch of
+    :func:`exp_overflow_emissions`; K3 builds its emissions from factors:
+    slot 2 a column's emission, slot 3 a single cell's."""
+    le, lx, ly = exp_overflow_emissions(rng)
+    alpha, beta = BPLA[:2]
+    fx = np.zeros((8, 40, 6))
+    fy = np.zeros((8, 50, 6))
+    fx[:, :, 2] = 1.0
+    fy[:, :, 2] = le[:, 0, :] / beta  # each column's emission, row 0's
+    for p, (i, j) in ((4, (20, 30)), (5, (10, 10))):
+        fx[p, i, 3] = 1.0
+        fy[p, j, 3] = (le[p, i, j] - le[p, 0, j]) / beta
+    t = lambda a, dt=np.float32: torch.as_tensor(a.astype(dt), device=dev)  # noqa: E731
+    label = "overflow batch (pairs 3 and 4 overflow)"
+    return [("K3", label, [t(fx), t(fy), t(lx, np.int32), t(ly, np.int32)], False),
+            ("K4", label, [t(le / PROT[0]), t(lx, np.int32), t(ly, np.int32)], False)]
+
+
 def la_drop_cases(rng: np.random.Generator, dev) -> list:
     """(key, label, operands, False) of K2 and K5 whose first rows score strongly
     (about +3 a cell) and whose later rows score 40+ nats lower, so that the
@@ -357,18 +452,35 @@ def la_drop_cases(rng: np.random.Generator, dev) -> list:
 
 
 def pad_wider(key: str, ops: list, cols: int) -> list:
-    """A log kernel's operands with the column axis padded ``cols`` wider
+    """An LA kernel's operands with the column axis padded ``cols`` wider
     (zeros past every pair's length): the same pairs on another geometry."""
-    if key == "K2":
+    if key in ("K2", "K3"):
         return [ops[0], torch.nn.functional.pad(ops[1], (0, 0, 0, cols)).contiguous(), *ops[2:]]
     return [torch.nn.functional.pad(ops[0], (0, cols)).contiguous(), *ops[1:]]
 
 
-def log_geometry(key: str, ops: list) -> tuple[int, int]:
-    """The lane geometry the log kernel K2 or K5 takes on these operands."""
-    from stem_kernel_torch.ops.la import log_route
+def width(key: str, ops: list) -> int:
+    """The padded column count Ly of an LA kernel's operands."""
+    return ops[1].shape[1] if key in ("K2", "K3") else ops[0].shape[2]
 
-    return log_route(ops[0].shape[1], ops[1].shape[1] if key == "K2" else ops[0].shape[2])
+
+def la_geometry(key: str, ops: list, cols: int = 0) -> tuple[int, int]:
+    """The lane geometry the LA kernel ``key`` takes on these operands, with
+    the column axis padded ``cols`` wider."""
+    from stem_kernel_torch.ops.la import exp_route, log_route
+
+    if key in ("K2", "K5"):
+        return log_route(ops[0].shape[1], width(key, ops) + cols)
+    return exp_route(ops[0].shape[1], width(key, ops) + cols, factored=key == "K3")
+
+
+def wider_cols(key: str, ops: list) -> int:
+    """The fewest columns, a multiple of WIDER, that padding these operands
+    by moves them to another lane geometry."""
+    cols = WIDER
+    while la_geometry(key, ops, cols) == la_geometry(key, ops):
+        cols += WIDER
+    return cols
 
 
 def dims(key: str, ops: list) -> str:
@@ -709,6 +821,8 @@ def main() -> int:
         for w in wrappers.values():
             w.launches = 0
         stem_fixed_point.launches_wide = 0
+        for w in (la.la_log_factored, la.la_exp_factored, la.la_exp, la.la_log):
+            w.launches_lanes = 0
 
     def counts() -> dict[str, int]:
         return {k: w.launches for k, w in wrappers.items()}
@@ -1085,39 +1199,64 @@ def main() -> int:
     ]
     # the log kernels' edges: every chunk and lane-geometry edge, ranks 2 and
     # 6, two slabs, emissions that drop 40+ nats, the long-score case (log K
-    # 326.0), and the two path batches padded WIDER columns wider, which take
-    # another lane geometry
-    log_fns = {("K2", False): (fac(la.la_log_factored), fac(la.la_log_factored_reference)),
-               ("K5", False): (mat(la.la_log), mat(la.la_log_reference)),
-               ("K5", True): (aff_log, aff_plain(la.la_log_reference))}
+    # 326.0), and the two path batches padded wider (wider_cols) onto
+    # another lane geometry; the exp kernels' edges, ranks and slabs, 256
+    # pairs of 384-512 rows and columns, the overflow batch and their path
+    # batches padded wider
+    la_fns = {("K2", False): (fac(la.la_log_factored), fac(la.la_log_factored_reference)),
+              ("K5", False): (mat(la.la_log), mat(la.la_log_reference)),
+              ("K5", True): (aff_log, aff_plain(la.la_log_reference)),
+              ("K3", False): (fac(la.la_exp_factored), fac(la.la_exp_factored_reference)),
+              ("K4", False): (mat(la.la_exp), mat(la.la_exp_reference)),
+              ("K4", True): (aff_exp, aff_plain(la.la_exp_reference))}
     edge_rng = np.random.default_rng(SEED + 6)
-    for key, label, ops, two in la_edge_cases(edge_rng, dev) + la_drop_cases(edge_rng, dev):
-        la_cases.append((key, label, *log_fns[key, two], ops))
+    for key, label, ops, two in (la_edge_cases(edge_rng, dev) + la_drop_cases(edge_rng, dev)
+                                 + la_exp_edge_cases(edge_rng, dev)
+                                 + la_overflow_cases(edge_rng, dev)):
+        la_cases.append((key, label, *la_fns[key, two], ops))
     n160 = torch.tensor([160, 120], dtype=torch.int32, device=dev)
     la_cases.append(("K5", "long scores, 15 a cell",
                      lambda s, lx, ly: la.la_log(s, lx, ly, *BPLA[1:]),
                      lambda s, lx, ly: la.la_log_reference(s, lx, ly, *BPLA[1:]),
                      [torch.full((2, 160, 160), 15.0, device=dev), n160,
                       torch.full_like(n160, 160)]))
-    path_log = {"K2": factored(rna_sq), "K5": protein(aa_sq)}
-    for key, ops in path_log.items():
-        la_cases.append((key, f"path batch padded {WIDER} columns wider", *log_fns[key, False],
-                         pad_wider(key, ops, WIDER)))
+    cap_lens = [torch.as_tensor(edge_rng.integers(384, la.LANE_MAX_LEN + 1, CAP_BATCH)
+                                .astype(np.int32), device=dev) for _ in range(2)]
+    cap_label = f"log emissions {EXP_LONG_LE}, L 384-{la.LANE_MAX_LEN}, the lane kernels' longest"
+    la_cases.append(("K3", cap_label, *la_fns["K3", False],
+                     exp_factors(edge_rng, CAP_BATCH, la.LANE_MAX_LEN, la.LANE_MAX_LEN, 6,
+                                 EXP_LONG_LE, dev) + cap_lens))
+    la_cases.append(("K4", cap_label, *la_fns["K4", False],
+                     exp_scores(edge_rng, CAP_BATCH, la.LANE_MAX_LEN, la.LANE_MAX_LEN, EXP_LONG_LE,
+                                dev) + cap_lens))
+    path_la = {"K2": factored(rna_sq), "K5": protein(aa_sq), "K3": factored(prof_sq),
+               "K4": protein(aa_sq)}
+    for key, ops in path_la.items():
+        cols = wider_cols(key, ops)
+        la_cases.append((key, f"path batch padded {cols} columns wider", *la_fns[key, False],
+                         pad_wider(key, ops, cols)))
     for key, label, kernel_fn, plain_fn, ops in la_cases:
         log = key in ("K2", "K5")
         got = kernel_fn(*ops)
         want = plain_fn(*ops)
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(want).all()), f"{key} {label}: plain version not finite")
-        check(bool(torch.isfinite(got).all()), f"{key} {label}: kernel output not finite")
-        err = (got - want).abs()
-        rel = float((err / want.abs()).max())
+        fin = torch.isfinite(want)
+        if "overflow" in label:  # non-finite exactly where the plain version is
+            check(not bool(fin.all()), f"{key} {label}: the plain version does not overflow")
+            check(torch.equal(torch.isfinite(got), fin),
+                  f"{key} {label}: kernel non-finite at {torch.isfinite(got).tolist()}, plain "
+                  f"version at {fin.tolist()}")
+        else:
+            check(bool(fin.all()), f"{key} {label}: plain version not finite")
+            check(bool(torch.isfinite(got).all()), f"{key} {label}: kernel output not finite")
+        err = (got[fin] - want[fin]).abs()
+        rel = float((err / want[fin].abs()).max())
         metric, limit = (float(err.max()), LA_LOG_ATOL) if log else (rel, LA_EXP_RTOL)
         first3 = [o[:3].contiguous() for o in ops]
         alone = kernel_fn(*first3)
         same = bool(torch.equal(alone, got[:3]))
-        geo = f", lanes x columns {log_geometry(key, ops)}" if log else ""
-        print(f"{key} parity, {label}: {dims(key, ops)}{geo}: max abs "
+        geo = la_geometry(key, ops)
+        print(f"{key} parity, {label}: {dims(key, ops)}, lanes x columns {geo}: max abs "
               f"{float(err.max()):.3e} max rel {rel:.3e} "
               f"({'abs' if log else 'rel'} limit {limit}); first 3 alone bit-identical {same}")
         check(metric <= limit, f"{key} {label}: kernel disagrees with its plain version")
@@ -1125,23 +1264,31 @@ def main() -> int:
         r = report.setdefault(key, {"max_abs_err": 0.0, "max_rel_err": 0.0})
         r["max_abs_err"] = max(r["max_abs_err"], float(err.max()))
         r["max_rel_err"] = max(r["max_rel_err"], rel)
-        if log:  # the lane kernels' and the one-warp kernel's worst apart
-            f = "max_abs_err_one_warp" if log_geometry(key, ops) == (0, 0) else "max_abs_err_lanes"
-            r[f] = max(r.get(f, 0.0), float(err.max()))
+        # the lane kernels' and the one-warp kernel's worst apart
+        f = (f"max_{'abs' if log else 'rel'}_err_"
+             f"{'one_warp' if geo == (0, 0) else 'lanes'}")
+        r[f] = max(r.get(f, 0.0), metric)
     ill_ops = factored((ill, ill))  # not gated: the plain version itself is 4e-2 from f64 here
     ill_err = float((fac(la.la_log_factored)(*ill_ops)
                      - fac(la.la_log_factored_reference)(*ill_ops)).abs().max())
     print(f"K2 at L={ILL_LEN} ({dims('K2', ill_ops)}, the one-warp kernel): max abs "
           f"{ill_err:.3e} from the plain version, not gated: f32 log K is good to about 1e-2 "
           f"at this length")
-    for key, ops in path_log.items():  # the same pairs on two geometries
-        fn = log_fns[key, False][0]
-        diff = float((fn(*ops) - fn(*pad_wider(key, ops, WIDER))).abs().max())
-        w = ops[1].shape[1] if key == "K2" else ops[0].shape[2]
-        print(f"{key} path batch at Ly={w} {log_geometry(key, ops)} and padded to {w + WIDER} "
-              f"{log_geometry(key, pad_wider(key, ops, WIDER))}: max abs diff {diff:.3e} (abs "
-              f"limit {LA_LOG_ATOL})")
-        check(diff <= LA_LOG_ATOL, f"{key}: the two lane geometries disagree")
+    for key, ops in path_la.items():  # the same pairs on two geometries
+        log = key in ("K2", "K5")
+        fn = la_fns[key, False][0]
+        cols = wider_cols(key, ops)
+        wide_ops = pad_wider(key, ops, cols)
+        geo, geo_wide = la_geometry(key, ops), la_geometry(key, wide_ops)
+        check(geo != geo_wide, f"{key}: padded {cols} columns wider, the path batch keeps "
+                               f"the lane geometry {geo}")
+        k, k_wide = fn(*ops), fn(*wide_ops)
+        diff = float((k - k_wide).abs().max() if log else ((k - k_wide).abs() / k.abs()).max())
+        limit = LA_LOG_ATOL if log else LA_EXP_RTOL
+        w = width(key, ops)
+        print(f"{key} path batch at Ly={w} {geo} and padded to {w + cols} {geo_wide}: max "
+              f"{'abs' if log else 'rel'} diff {diff:.3e} (limit {limit})")
+        check(diff <= limit, f"{key}: the two lane geometries disagree")
 
     # ---- 7. BPLA path ----
     reset_counts()
@@ -1188,6 +1335,7 @@ def main() -> int:
                     "+1", p("ppos.fa"), "-1", p("pneg.fa")])
     la_train_s = time.perf_counter() - t0
     la_train_launches = la.la_exp.launches
+    la_train_lanes = la.la_exp.launches_lanes
     svm_tools.train_main([p("la.dat"), p("la.model")])
     la_kernel.main(["--device", "cuda", "-n", p("la_test.dat"),
                     "--model", p("la.model"), "--predict", p("la_pred.txt"),
@@ -1196,10 +1344,14 @@ def main() -> int:
     la_counts = counts()
     report["K4"]["launches"] = la_counts["K4"]
     labels, g_la = read_precomputed(p("la.dat"))
+    la_lanes = la.la_exp.launches_lanes
     print(f"LA path: train Gram {g_la.shape}, K4 launches {la_train_launches} (train) "
-          f"{la_counts['K4']} (train + predict); all counts {la_counts}")
+          f"{la_counts['K4']} (train + predict), on a lane geometry {la_train_lanes} (train) "
+          f"{la_lanes} (train + predict); all counts {la_counts}")
     check(la_train_launches > 0 and la_counts["K4"] > la_train_launches,
           "the LA path did not launch K4 in train and predict")
+    check(la_train_lanes > 0 and la_lanes > la_train_lanes,
+          "the LA path did not run K4's lane kernel in train and predict")
     gram_checks("la_kernel", g_la, n, labels, train_labels)
     la_auc = predictions(p("la_pred.txt"), 2 * N_TEST, "la_kernel")
     for d in ("cuda", "cpu"):
@@ -1217,10 +1369,12 @@ def main() -> int:
     g_fwd = PairKernelEngine(BPLAKernel().to(dev), prof_feats, device=dev,
                              batch_size=LA_BATCH).gram(normalize=True)
     fwd_counts = counts()
+    fwd_lanes = la.la_exp_factored.launches_lanes
     report["K3"]["launches"] = fwd_counts["K3"]
     print(f"flagship forward: exp Gram {g_fwd.shape} of random-profile examples "
-          f"(L 32-64); all counts {fwd_counts}")
+          f"(L 32-64); K3 on a lane geometry {fwd_lanes}; all counts {fwd_counts}")
     check(fwd_counts["K3"] > 0, "the flagship forward never launched K3")
+    check(fwd_lanes > 0, "the flagship forward never ran K3's lane kernel")
     gram_checks("flagship forward", g_fwd, n)
 
     # ---- 10. log protein Gram: BLOSUM62 has rank 22, so K5 ----
@@ -1252,41 +1406,58 @@ def main() -> int:
                            bound_by=bound_by)
         print(f"times on {smi}: {key} {ms:.4f} ms a wrapper call (device {dev_ms:.4f}) vs "
               f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by} ({dims(key, ops)})")
-    # the log kernels' lane geometries at B = 256: K2 on the BPLA path's
-    # batch, K5 on the log protein Gram's, K2 on random factors at the other
-    # widths LOG_ROUTE covers; device ms a call (graph replay) of every
-    # geometry that holds the width at most 4x over, and of the one-warp kernel,
-    # (0, 0).  These times place LOG_ROUTE.
-    geo_rng = np.random.default_rng(SEED + 7)
-    tables = [("K2", "BPLA path batch", BPLA, path_log["K2"]),
-              ("K5", "log protein batch", PROT, path_log["K5"])]
-    for w in ROUTE_WIDTHS:
-        fxy = [torch.as_tensor((geo_rng.normal(size=(LA_BATCH, n, 6)) * 0.4).astype(np.float32),
-                               device=dev) for n in (SEQ_LEN, w)]
-        lens = [torch.full((LA_BATCH,), SEQ_LEN, dtype=torch.int32, device=dev),
-                torch.as_tensor(geo_rng.integers(w // 2 + 1, w + 1, LA_BATCH).astype(np.int32),
-                                device=dev)]
-        tables.append(("K2", "random factors", BPLA, fxy + lens))
-    for key, label, params, ops in tables:
-        w = ops[1].shape[1] if key == "K2" else ops[0].shape[2]
-        at = la.la_log_factored_at if key == "K2" else la.la_log_at
-        cells = []
-        for geo in [(0, 0)] + [g for g in la.LOG_GEOMETRIES if w <= g[0] * g[1] <= 4 * w]:
-            t = graph_ms(lambda: at(geo, *ops, *params), 5)  # noqa: B023
-            cells.append(f"{'one-warp' if geo == (0, 0) else '%dx%d' % geo} {t:.4f}")
-        print(f"times on {smi}: {key} lane geometries (lanes x columns, ms), {label} "
-              f"({dims(key, ops)}); the route takes {log_geometry(key, ops)}: {'; '.join(cells)}")
+    # the lane geometries at B = 256: K2 on the BPLA path's batch, K5 on the
+    # log protein Gram's, K4 on the LA path's, K3 on the flagship's, K2, K3
+    # and K4 on random operands at the other widths the routes cover (K3's
+    # and K4's with log emissions in EXP_LONG_LE, so that K stays finite);
+    # device ms a call (graph replay) of every geometry that holds the width
+    # at most 4x over, and of the one-warp kernel, (0, 0); K3 and K4 also on
+    # B = 4096 pairs of their paths.  These times place LOG_ROUTE and
+    # EXP_ROUTE.
     big_idx = lambda m: rng.integers(0, m, BIG_BATCH)  # noqa: E731
     big_rna = (pick(rna_feats, big_idx(n), dev), pick(rna_feats, big_idx(n), dev))
     big_aa = (pick(aa_train, big_idx(n), dev), pick(aa_train, big_idx(n), dev))
-    for key, ops in (("K2", factored(big_rna)), ("K5", protein(big_aa))):
-        kernel_fn, plain_fn = log_fns[key, False]
+    big_prof = (pick(prof_feats, big_idx(n), dev), pick(prof_feats, big_idx(n), dev))
+    geo_rng = np.random.default_rng(SEED + 7)
+    tables = [("K2", "BPLA path batch", BPLA, path_la["K2"]),
+              ("K5", "log protein batch", PROT, path_la["K5"]),
+              ("K4", "LA path batch", PROT, path_la["K4"]),
+              ("K3", "flagship batch", BPLA, path_la["K3"]),
+              ("K4", "LA path pairs", PROT, protein(big_aa)),
+              ("K3", "flagship pairs", BPLA, factored(big_prof))]
+    for w in ROUTE_WIDTHS:
+        lens = [torch.full((LA_BATCH,), SEQ_LEN, dtype=torch.int32, device=dev),
+                torch.as_tensor(geo_rng.integers(w // 2 + 1, w + 1, LA_BATCH).astype(np.int32),
+                                device=dev)]
+        fxy = [torch.as_tensor((geo_rng.normal(size=(LA_BATCH, n, 6)) * 0.4).astype(np.float32),
+                               device=dev) for n in (SEQ_LEN, w)]
+        tables.append(("K2", "random factors", BPLA, fxy + lens))
+        tables.append(("K3", "random factors", BPLA,
+                       exp_factors(geo_rng, LA_BATCH, SEQ_LEN, w, 6, EXP_LONG_LE, dev) + lens))
+        tables.append(("K4", "random scores", PROT,
+                       exp_scores(geo_rng, LA_BATCH, SEQ_LEN, w, EXP_LONG_LE, dev) + lens))
+    at_fns = {"K2": (la.la_log_factored_at, la.LOG_GEOMETRIES),
+              "K5": (la.la_log_at, la.LOG_GEOMETRIES),
+              "K3": (la.la_exp_factored_at, la.EXP_GEOMETRIES["factored"]),
+              "K4": (la.la_exp_at, la.EXP_GEOMETRIES["scores"])}
+    for key, label, params, ops in tables:
+        w = width(key, ops)
+        at, library = at_fns[key]
+        cells = []
+        for geo in [(0, 0)] + [g for g in library if w <= g[0] * g[1] <= 4 * w]:
+            t = graph_ms(lambda: at(geo, *ops, *params), 5)  # noqa: B023
+            cells.append(f"{'one-warp' if geo == (0, 0) else '%dx%d' % geo} {t:.4f}")
+        print(f"times on {smi}: {key} lane geometries (lanes x columns, ms), {label} "
+              f"({dims(key, ops)}); the route takes {la_geometry(key, ops)}: {'; '.join(cells)}")
+    for key, ops in (("K2", factored(big_rna)), ("K5", protein(big_aa)),
+                     ("K3", factored(big_prof)), ("K4", protein(big_aa))):
+        kernel_fn, plain_fn = la_fns[key, False]
         ms, plain_ms = timed_pair(lambda: kernel_fn(*ops), lambda: plain_fn(*ops), 2)  # noqa: B023
         dev_ms = graph_ms(lambda: kernel_fn(*ops), 3)  # noqa: B023
         bound_ms, bound_by = la_bound(key, ops)
         print(f"times on {smi}: {key} at B={BIG_BATCH} {ms:.4f} ms a wrapper call (device "
               f"{dev_ms:.4f}) vs plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by "
-              f"{bound_by} ({dims(key, ops)})")
+              f"{bound_by} ({dims(key, ops)}, lanes x columns {la_geometry(key, ops)})")
     long_timing = {
         "K2": (fac(la.la_log_factored), fac(la.la_log_factored_reference),
                factored((long_x, long_y))),
@@ -1302,7 +1473,8 @@ def main() -> int:
     rates = {}
     for label, fn, feats, log_values in (
             ("bpla_kernel", kern.log_value, rna_feats, True),
-            ("la_kernel", lambda x, y: la.la_exp_auto(*protein((x, y)), *PROT), aa_train, False)):
+            ("la_kernel", lambda x, y: la.la_exp_auto(*protein((x, y)), *PROT), aa_train, False),
+            ("flagship", kern, prof_feats, False)):
         eng = PairKernelEngine(fn, feats, device=dev, batch_size=LA_BATCH, log_values=log_values)
         eng.gram(normalize=True)
         torch.cuda.synchronize()
@@ -1311,7 +1483,8 @@ def main() -> int:
         torch.cuda.synchronize()
         rates[label] = n_pairs / (time.perf_counter() - t0)
     print(f"times on {smi}: bpla_kernel Gram {rates['bpla_kernel']:.1f} pairs/s, "
-          f"la_kernel Gram {rates['la_kernel']:.1f} pairs/s ({n_pairs} pairs each); "
+          f"la_kernel Gram {rates['la_kernel']:.1f} pairs/s, flagship exp Gram "
+          f"{rates['flagship']:.1f} pairs/s ({n_pairs} pairs each); "
           f"bpla_kernel train flow {bpla_train_s:.2f} s (fold + features "
           f"{bpla_featurize_s:.2f} s), predict flow {2 * N_TEST / bpla_predict_s:.2f} rows/s; "
           f"la_kernel train flow {la_train_s:.2f} s")
@@ -1439,7 +1612,8 @@ def main() -> int:
                "stem_kernel_tpu/ops/pallas_full_stem.py:426"),
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    extra = ("device_ms", "max_rel_err", "mode", "max_abs_err_lanes", "max_abs_err_one_warp")
+    extra = ("device_ms", "max_rel_err", "mode", "max_abs_err_lanes", "max_abs_err_one_warp",
+             "max_rel_err_lanes", "max_rel_err_one_warp")
     # no single PyTorch call computes any of these functions: library_ms is null
     print(json.dumps({"kernels": [
         {"name": nm, "route": "cuda", "source": src, "replaces": rep,

@@ -1,5 +1,5 @@
-// Local-alignment (LA) DP on Hopper (sm_90a), full f32: four kernels, the
-// log pair on a choice of lane geometries.
+// Local-alignment (LA) DP on Hopper (sm_90a), full f32: four kernels, each
+// on a choice of lane geometries.
 //
 // Replaces the four Pallas TPU kernels of stem_kernel_tpu/ops/pallas_la.py:
 //
@@ -98,6 +98,26 @@
 // of rounding, f64 too, moves their log K by 1e-3 and more.  Past 512 rows
 // or columns the one-warp kernel, which repeats the plain version's
 // arithmetic, runs.
+//
+// The exp kernels K3 and K4 (la_exp_lanes) run the exp row step on a lane
+// geometry too, with one barrier a row past one warp (the scan's carries
+// and edges, double buffered by row parity; there is no row maximum), and
+// take their own routes (ops/la.py, EXP_ROUTE, placed by chip_smoke.py's
+// geometry table at B = 256: K3 on 32 x 1 up to 32 columns, 64 x 2 to 128,
+// 128 x 2 to 256, 128 x 4 to 512; K4 on 32 x 1, 64 x 1, 128 x 1 to 128
+// columns, then as K3).  Of 13 geometries timed (32 to 256 lanes of 1 to 8
+// columns), the library holds those that won a width for K3 or K4.  In exp space a row's emission does not depend on the
+// closure, so it is computed, exp included, one row ahead from operands
+// loaded a row before that, and fy stays in registers.  What bounds them on
+// the card is the issue of a row's instructions, not the chain's latency:
+// with one pair a warp the lane scan's shuffles overlap the rest, and a pair
+// runs faster when more warps split its columns (128 lanes of 1 column at
+// 80 columns for K4) though each warp then waits at a barrier a row.  A
+// deeper ring of rows in flight, and a systolic wavefront (lane l on row
+// t - l at step t, one shuffle a step, no scan), bought nothing or lost in
+// development runs.  exp is libm's expf: an exp on the SFU (ex2.approx with
+// the argument in two floats) was slower.  A pair whose emissions overflow
+// comes out non-finite, as the plain version does.
 
 // C interface: each entry point returns cudaGetLastError() after its launch.
 
@@ -684,9 +704,245 @@ int launch_log(const float* p0, const float* p1, const int* lx, const int* ly,
   return (int)cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// The exp kernels K3 and K4 on a lane geometry (P lanes of C columns a pair).
+
+// One pair a block of P threads, C columns a thread (thread q owns columns
+// [q C, q C + C)).  The emission e of row i + 1, exp included, is computed
+// during row i from operands loaded D rows earlier, so the row
+// step starts from a ready e and only the closure is on the chain.  P/32
+// warps join their scan carries and edges through shared memory, double
+// buffered by row parity: one barrier a row.  Each thread keeps its own
+// running sum of m, reduced once after the last row, lanes by butterfly and
+// warps in warp order.
+template <int P, int C, bool FACTORED>
+__global__ void __launch_bounds__(P)
+la_exp_lanes(const float* __restrict__ p0, const float* __restrict__ p1,
+             const int* __restrict__ lx, const int* __restrict__ ly,
+             int max_lx, int max_ly, int rank, Params prm, float* __restrict__ out) {
+  constexpr int W = P / 32;  // warps of the pair
+  // rows of operands in flight: 3 for K4's scores at one column a lane, its
+  // shortest row step; 1 elsewhere
+  constexpr int D = (C == 1 && !FACTORED) ? 3 : 1;
+  // a row's operands a thread holds: fx (K3), or its scores in one or two slabs (K4)
+  constexpr int R = FACTORED ? MAX_RANK : 2 * C;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int b = blockIdx.x;
+  const int nx = min(max(lx[b], 0), max_lx);
+  const int ny = min(max(ly[b], 0), max_ly);
+  const int j0 = threadIdx.x * C;
+  if (nx == 0 || ny == 0) {  // every cell masked: K = 1
+    if (threadIdx.x == 0) out[b] = 1.f;
+    return;
+  }
+
+  float bp[C];  // be^(c+1)
+  bp[0] = prm.be;
+#pragma unroll
+  for (int c = 1; c < C; ++c) bp[c] = bp[c - 1] * prm.be;
+  const float beC = bp[C - 1];
+  // W > 1: be^(32 C) (a warp's columns), be^(32 C - 1), be^(lane C), be^((lane - 1) C)
+  float beW = 1.f, bePre = 1.f, beLane = 1.f, beLane1 = 1.f;
+  if (W > 1) {
+    for (int t = 0; t < 32; ++t) beW *= beC;
+    bePre = beW / prm.be;
+    for (int t = 0; t < lane; ++t) {
+      beLane1 = beLane;
+      beLane *= beC;
+    }
+  }
+  float pw[5];  // be^(C 2^k): the lane scan's factors, the same every row
+  pw[0] = beC;
+#pragma unroll
+  for (int k = 1; k < 5; ++k) pw[k] = pw[k - 1] * pw[k - 1];
+  __shared__ float sh_end[2][W], sh_pre[2][W], sh_last[2][W], sh_acc[W];
+
+  // ---- the pair's operands: fy in registers; the rows' fx or scores in a
+  // ring of D rows, each loaded D rows before its emission is computed
+  const float ab = prm.alpha * prm.beta;
+  const bool two = p1 != nullptr;
+  const size_t xbase = (size_t)b * max_lx;
+  float fyr[C][MAX_RANK];
+  float ring[D][R];
+  auto load_row = [&](int r, float (&op)[R]) {
+    if constexpr (FACTORED) {
+      const size_t row = (xbase + r) * rank;
+#pragma unroll
+      for (int k = 0; k < MAX_RANK; ++k) op[k] = k < rank ? p0[row + k] : 0.f;
+    } else {
+      const size_t row = (xbase + r) * max_ly;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int j = j0 + c;
+        op[c] = j < ny ? p0[row + j] : 0.f;
+        op[C + c] = (j < ny && two) ? p1[row + j] : 0.f;
+      }
+    }
+  };
+  // e of a row from its operands; 0 on masked columns
+  auto emission = [&](const float (&op)[R], float (&e)[C]) {
+    if constexpr (FACTORED) {
+      float fxs[MAX_RANK];
+#pragma unroll
+      for (int k = 0; k < MAX_RANK; ++k) fxs[k] = op[k] * (k < 2 ? ab : prm.beta);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        float s = fxs[0] * fyr[c][0];
+#pragma unroll
+        for (int k = 1; k < MAX_RANK; ++k) s = fmaf(fxs[k], fyr[c][k], s);
+        e[c] = j0 + c < ny ? expf(s) : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float le = prm.beta * (two ? fmaf(prm.alpha, op[c], op[C + c]) : op[c]);
+        e[c] = j0 + c < ny ? expf(le) : 0.f;
+      }
+    }
+  };
+  if constexpr (FACTORED) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int j = j0 + c;
+      const float* fy = p1 + ((size_t)b * max_ly + j) * rank;
+#pragma unroll
+      for (int k = 0; k < MAX_RANK; ++k) fyr[c][k] = (j < ny && k < rank) ? fy[k] : 0.f;
+    }
+  }
+  float e[C];
+  load_row(0, ring[0]);
+  emission(ring[0], e);
+#pragma unroll
+  for (int d = 0; d < D; ++d) load_row(min(1 + d, nx - 1), ring[d]);
+
+  float a[C], g[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) a[c] = g[c] = 0.f;
+  float acc = 0.f;  // this thread's sum of m
+
+  for (int i = 0; i < nx; ++i) {
+    // ---- off the chain: e of row i + 1, and the operands of row i + 1 + D
+    float en[C];
+    emission(ring[0], en);
+#pragma unroll
+    for (int d = 0; d + 1 < D; ++d) {
+#pragma unroll
+      for (int k = 0; k < R; ++k) ring[d][k] = ring[d + 1][k];
+    }
+    load_row(min(i + 1 + D, nx - 1), ring[D - 1]);
+
+    // ---- m = e (1 + a + bg g) = e a + w, w = e (1 + bg g) known before a;
+    // the chunk's z with carry 0
+    float v[C], z[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      v[c] = fmaf(e[c], a[c], e[c] * fmaf(prm.bg, g[c], 1.f));
+      acc += v[c];
+    }
+    z[0] = v[0];
+#pragma unroll
+    for (int c = 1; c < C; ++c) z[c] = fmaf(prm.be, z[c - 1], v[c]);
+    // the lane before's last m and z at its column C - 2 (carry 0), taken
+    // before the scan so that neither shuffle waits on it
+    float m_prev = __shfl_up_sync(FULL, v[C - 1], 1);
+    float z_loc2 = 0.f;
+    if constexpr (C > 1) z_loc2 = __shfl_up_sync(FULL, z[C - 2], 1);
+    // inclusive scan over the warp's lanes of x = be^C x' + z[C - 1]
+    float x = z[C - 1];
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {
+      const float y = __shfl_up_sync(FULL, x, 1 << k);
+      if (lane >= (1 << k)) x = fmaf(pw[k], y, x);
+    }
+    // z at the column before this lane's chunk and before the lane before's
+    float zin = __shfl_up_sync(FULL, x, 1);
+    float zin1 = __shfl_up_sync(FULL, x, 2);
+    if (lane < 1) zin = 0.f;
+    if (lane < 2) zin1 = 0.f;
+    float m_edge = 0.f, z2_edge = 0.f;  // lane 0 of warp w > 0: from warp w - 1
+    if (W > 1) {
+      const int par = i & 1;
+      if (lane == 31) {
+        sh_end[par][warp] = x;
+        if constexpr (C > 1) sh_pre[par][warp] = fmaf(bp[C - 2], zin, z[C - 2]);
+        else sh_pre[par][warp] = zin;
+        sh_last[par][warp] = v[C - 1];
+      }
+      __syncthreads();
+      float zw = 0.f, zw_prev = 0.f;  // carry into this warp, into the one before
+      for (int t = 0; t < warp; ++t) {
+        zw_prev = zw;
+        zw = fmaf(beW, zw, sh_end[par][t]);
+      }
+      zin = fmaf(beLane, zw, zin);
+      if (lane >= 1) zin1 = fmaf(beLane1, zw, zin1);
+      if (warp > 0) {
+        m_edge = sh_last[par][warp - 1];
+        z2_edge = fmaf(bePre, zw_prev, sh_pre[par][warp - 1]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) z[c] = fmaf(bp[c], zin, z[c]);
+    // an = v @ Tu: an[j] = v[j-1] + bg z[j-2]; z[j-2] of the first column
+    // is the lane before's z at its column C - 2, with its carry zin1
+    float z_prev2;
+    if constexpr (C > 1) z_prev2 = fmaf(bp[C - 2], zin1, z_loc2);
+    else z_prev2 = zin1;
+    if (lane == 0) {
+      m_prev = m_edge;
+      z_prev2 = z2_edge;
+    }
+    float an[C];
+    an[0] = fmaf(prm.bg, z_prev2, m_prev);
+    if constexpr (C > 1) an[1] = fmaf(prm.bg, zin, v[0]);
+#pragma unroll
+    for (int c = 2; c < C; ++c) an[c] = fmaf(prm.bg, z[c - 2], v[c - 1]);
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      g[c] = fmaf(prm.be, g[c], a[c]);
+      a[c] = an[c];
+      e[c] = en[c];
+    }
+  }
+  acc = warp_sum(acc);
+  if (W > 1) {  // the warps' sums in warp order
+    if (lane == 0) sh_acc[warp] = acc;
+    __syncthreads();
+    acc = 0.f;
+#pragma unroll
+    for (int t = 0; t < W; ++t) acc += sh_acc[t];
+  }
+  if (threadIdx.x == 0) out[b] = 1.f + acc;
+}
+
+// lanes 0: the one-warp kernel (and its one-block-a-pair form past 1024
+// columns); otherwise la_exp_lanes<lanes, cols>, which needs lanes * cols >= max_ly
+template <bool FACTORED>
+int launch_exp(const float* p0, const float* p1, const int* lx, const int* ly,
+               int batch, int max_lx, int max_ly, int rank, int lanes, int cols,
+               Params prm, float* out, cudaStream_t stream) {
+  if (lanes == 0)
+    return launch<false, FACTORED>(p0, p1, lx, ly, batch, max_lx, max_ly, rank, prm, out, stream);
+  if (lanes * cols < max_ly) return (int)cudaErrorInvalidValue;
+#define LA_EXP_CASE(PP, CC)                                                         \
+  if (lanes == PP && cols == CC) {                                                  \
+    la_exp_lanes<PP, CC, FACTORED><<<batch, PP, 0, stream>>>(p0, p1, lx, ly, max_lx, \
+                                                             max_ly, rank, prm, out); \
+    return (int)cudaGetLastError();                                                 \
+  }
+  if constexpr (FACTORED) {  // ops/la.py EXP_GEOMETRIES["factored"]
+    LA_EXP_CASE(32, 1) LA_EXP_CASE(64, 2) LA_EXP_CASE(128, 2) LA_EXP_CASE(128, 4)
+  } else {  // EXP_GEOMETRIES["scores"]
+    LA_EXP_CASE(32, 1) LA_EXP_CASE(64, 1) LA_EXP_CASE(128, 1) LA_EXP_CASE(128, 2)
+    LA_EXP_CASE(128, 4)
+  }
+#undef LA_EXP_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// the log kernels take the lane geometry (lanes, cols); lanes 0 is the one-warp kernel
+// every entry point takes the lane geometry (lanes, cols); lanes 0 is the one-warp kernel
 extern "C" int la_log_factored_f32(
     const float* fx, const float* fy, const int* lx, const int* ly,
     int batch, int max_lx, int max_ly, int rank, int lanes, int cols,
@@ -699,21 +955,21 @@ extern "C" int la_log_factored_f32(
 
 extern "C" int la_exp_factored_f32(
     const float* fx, const float* fy, const int* lx, const int* ly,
-    int batch, int max_lx, int max_ly, int rank,
+    int batch, int max_lx, int max_ly, int rank, int lanes, int cols,
     float alpha, float beta, float bg, float be, float lbg, float lbe,
     float* out, cudaStream_t stream) {
   if (rank < 2 || rank > MAX_RANK) return (int)cudaErrorInvalidValue;
-  return launch<false, true>(fx, fy, lx, ly, batch, max_lx, max_ly, rank,
-                             Params{alpha, beta, bg, be, lbg, lbe}, out, stream);
+  return launch_exp<true>(fx, fy, lx, ly, batch, max_lx, max_ly, rank, lanes, cols,
+                          Params{alpha, beta, bg, be, lbg, lbe}, out, stream);
 }
 
 extern "C" int la_exp_f32(
     const float* s0, const float* s1, const int* lx, const int* ly,
-    int batch, int max_lx, int max_ly,
+    int batch, int max_lx, int max_ly, int lanes, int cols,
     float alpha, float beta, float bg, float be, float lbg, float lbe,
     float* out, cudaStream_t stream) {
-  return launch<false, false>(s0, s1, lx, ly, batch, max_lx, max_ly, 0,
-                              Params{alpha, beta, bg, be, lbg, lbe}, out, stream);
+  return launch_exp<false>(s0, s1, lx, ly, batch, max_lx, max_ly, 0, lanes, cols,
+                           Params{alpha, beta, bg, be, lbg, lbe}, out, stream);
 }
 
 extern "C" int la_log_f32(

@@ -102,10 +102,10 @@ def load_library() -> ctypes.CDLL:
     fn = lib.stem_fixed_point_cluster_info
     fn.argtypes = [i, i, i, p]
     fn.restype = ctypes.c_int
-    # (p0, p1, lx, ly, batch, max_lx, max_ly[, rank][, lanes, cols], alpha,
+    # (p0, p1, lx, ly, batch, max_lx, max_ly[, rank], lanes, cols, alpha,
     #  beta, bg, be, log bg, log be, out, stream)
-    for name, n_int in (("la_log_factored_f32", 6), ("la_exp_factored_f32", 4),
-                        ("la_exp_f32", 3), ("la_log_f32", 5)):
+    for name, n_int in (("la_log_factored_f32", 6), ("la_exp_factored_f32", 6),
+                        ("la_exp_f32", 5), ("la_log_f32", 5)):
         fn = getattr(lib, name)
         fn.argtypes = [p] * 4 + [i] * n_int + [f] * 6 + [p, p]
         fn.restype = ctypes.c_int

@@ -37,11 +37,14 @@ Dispatch: a CPU tensor takes the wrapper's plain version
 (``<wrapper>_reference``: the closure with an explicit Tu product, one
 ``bmm`` row at a time); a CUDA tensor launches the kernel in
 ``stem_kernel_torch/csrc/la_dp.cu`` or raises.  Nothing falls back.  Each
-wrapper counts its kernel launches in ``<wrapper>.launches``.  The log
-kernels (K2, K5) run on a lane geometry, lanes a pair by columns a lane,
-that :func:`log_route` picks from the padded shape (``LOG_ROUTE``, placed
-by ``chip_smoke.py``'s geometry table); :func:`la_log_factored_at` and
-:func:`la_log_at` launch a given one.
+wrapper counts its kernel launches in ``<wrapper>.launches``, and those on
+a lane geometry in ``<wrapper>.launches_lanes``.  Every kernel runs on a
+lane geometry, lanes a pair by columns a lane, that the route picks from the
+padded shape: :func:`log_route` for the log kernels (K2, K5, ``LOG_ROUTE``),
+:func:`exp_route` for the exp ones (K3, K4, ``EXP_ROUTE``), each placed by
+``chip_smoke.py``'s geometry table; (0, 0) is PR 2's one-warp kernel.
+:func:`la_log_factored_at`, :func:`la_log_at`, :func:`la_exp_factored_at`
+and :func:`la_exp_at` launch a given geometry.
 """
 
 from __future__ import annotations
@@ -64,6 +67,16 @@ LOG_ROUTE = ((32, 32, 1), (64, 32, 2), (128, 32, 4), (256, 128, 2), (512, 128, 4
 # the lane geometries (lanes a pair, columns a lane) that the library holds
 # (csrc/la_dp.cu, la_log_lanes): the route's; (0, 0) is the one-warp kernel
 LOG_GEOMETRIES = tuple((lanes, cols) for _, lanes, cols in LOG_ROUTE)
+# (largest padded width max_ly, lanes, columns) the exp kernels take on the
+# card, K3 (factored) and K4 (scores) apart, placed by chip_smoke.py's
+# geometry table (phase 11); past the last row, and past LANE_MAX_LEN rows,
+# the one-warp kernel
+EXP_ROUTE = {"factored": ((32, 32, 1), (128, 64, 2), (256, 128, 2), (512, 128, 4)),
+             "scores": ((32, 32, 1), (64, 64, 1), (128, 128, 1), (256, 128, 2), (512, 128, 4))}
+# the lane geometries of each exp kernel that the library holds
+# (csrc/la_dp.cu, la_exp_lanes): its route's
+EXP_GEOMETRIES = {kind: tuple((lanes, cols) for _, lanes, cols in route)
+                  for kind, route in EXP_ROUTE.items()}
 # The lane kernels take pairs up to 512 rows and columns, the longest that
 # chip_smoke.py's phase 6 holds them to (256 pairs of 384-512).  Past that
 # the one-warp kernel, which repeats the plain version's arithmetic, runs:
@@ -270,21 +283,32 @@ def _check_scores(scores, scores2, lx, ly) -> None:
 
 # ------------------------------------------------------------------ launch
 
-def log_route(max_lx: int, max_ly: int) -> tuple[int, int]:
-    """(lanes, columns a lane) of the log kernels for a batch padded to
-    ``max_lx`` rows and ``max_ly`` columns; (0, 0) is the one-warp kernel.  A
-    pair's bits depend on the geometry, so on the padded shape, never on
-    the batch."""
+def _route(table, max_lx: int, max_ly: int) -> tuple[int, int]:
     if max_lx <= LANE_MAX_LEN:
-        for limit, lanes, cols in LOG_ROUTE:
+        for limit, lanes, cols in table:
             if max_ly <= limit:
                 return lanes, cols
     return 0, 0
 
 
+def log_route(max_lx: int, max_ly: int) -> tuple[int, int]:
+    """(lanes, columns a lane) of the log kernels for a batch padded to
+    ``max_lx`` rows and ``max_ly`` columns; (0, 0) is the one-warp kernel.  A
+    pair's bits depend on the geometry, so on the padded shape, never on
+    the batch."""
+    return _route(LOG_ROUTE, max_lx, max_ly)
+
+
+def exp_route(max_lx: int, max_ly: int, factored: bool) -> tuple[int, int]:
+    """(lanes, columns a lane) of the exp kernel K3 (``factored``) or K4, as
+    :func:`log_route`."""
+    return _route(EXP_ROUTE["factored" if factored else "scores"], max_lx, max_ly)
+
+
 def _launch(wrapper, entry: str, ptrs: list, lx, ly, dims: list, floats: list,
             dev) -> torch.Tensor:
-    """Run one entry point of the library on the current stream; (B,) f32."""
+    """Run one entry point of the library on the current stream; (B,) f32.
+    ``dims`` ends with the geometry (lanes, cols)."""
     out = torch.empty(lx.shape[0], device=dev, dtype=torch.float32)
     if lx.shape[0] == 0:
         return out
@@ -296,25 +320,34 @@ def _launch(wrapper, entry: str, ptrs: list, lx, ly, dims: list, floats: list,
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
     wrapper.launches += 1
+    wrapper.launches_lanes += int(dims[-2] != 0)
     return out
 
 
-def _geometry_dims(geometry, max_lx: int, max_ly: int) -> list:
-    """[lanes, cols] of a log kernel's launch: ``geometry``, or the route's."""
-    lanes, cols = log_route(max_lx, max_ly) if geometry is None else geometry
-    if (lanes, cols) != (0, 0) and ((lanes, cols) not in LOG_GEOMETRIES or lanes * cols < max_ly):
-        raise ValueError(f"no log kernel of {lanes} lanes x {cols} columns for Ly = {max_ly}")
+def _geometry_dims(geometry, max_lx: int, max_ly: int, log: bool = True,
+                   factored: bool = True) -> list:
+    """[lanes, cols] of a launch: ``geometry``, or the route's."""
+    if log:
+        library = LOG_GEOMETRIES
+        route = log_route(max_lx, max_ly)
+    else:
+        library = EXP_GEOMETRIES["factored" if factored else "scores"]
+        route = exp_route(max_lx, max_ly, factored)
+    lanes, cols = route if geometry is None else geometry
+    if (lanes, cols) != (0, 0) and ((lanes, cols) not in library or lanes * cols < max_ly):
+        raise ValueError(f"no {'log' if log else 'exp'} kernel of {lanes} lanes x {cols} "
+                         f"columns for Ly = {max_ly}")
     return [lanes, cols]
 
 
 def _factored(wrapper, entry, reference, fx, fy, lx, ly, alpha, beta, gap, ext, *,
-              log: bool = False, geometry=None):
+              log: bool, geometry=None):
     _check_factored(fx, fy, lx, ly)
     if fx.device.type == "cpu":
         return reference(fx, fy, lx, ly, alpha, beta, gap, ext)
     sc = _scalars(beta, gap, ext)
     bsz, max_lx, rank = fx.shape
-    geo = _geometry_dims(geometry, max_lx, fy.shape[1]) if log else []
+    geo = _geometry_dims(geometry, max_lx, fy.shape[1], log, factored=True)
     return _launch(wrapper, entry, [fx.data_ptr(), fy.data_ptr()], lx, ly,
                    [bsz, max_lx, fy.shape[1], rank, *geo],
                    [_f32(alpha), sc["beta"], sc["bg"], sc["be"], sc["lbg"], sc["lbe"]],
@@ -322,14 +355,14 @@ def _factored(wrapper, entry, reference, fx, fy, lx, ly, alpha, beta, gap, ext, 
 
 
 def _materialised(wrapper, entry, reference, scores, lx, ly, beta, gap, ext,
-                  scores2, alpha, *, log: bool = False, geometry=None):
+                  scores2, alpha, *, log: bool, geometry=None):
     _check_scores(scores, scores2, lx, ly)
     if scores.device.type == "cpu":
         return reference(scores, lx, ly, beta, gap, ext, scores2=scores2, alpha=alpha)
     sc = _scalars(beta, gap, ext)
     bsz, max_lx, max_ly = scores.shape
     s2 = None if scores2 is None else scores2.data_ptr()
-    geo = _geometry_dims(geometry, max_lx, max_ly) if log else []
+    geo = _geometry_dims(geometry, max_lx, max_ly, log, factored=False)
     return _launch(wrapper, entry, [scores.data_ptr(), s2], lx, ly,
                    [bsz, max_lx, max_ly, *geo],
                    [_f32(alpha), sc["beta"], sc["bg"], sc["be"], sc["lbg"], sc["lbe"]],
@@ -347,14 +380,14 @@ def la_exp_factored(fx, fy, lx, ly, alpha, beta, gap, ext) -> torch.Tensor:
     """K of the LA kernel on rank-K factors (K3); shapes as
     :func:`la_log_factored`.  Overflows f32 for long, well-matched pairs."""
     return _factored(la_exp_factored, "la_exp_factored_f32", la_exp_factored_reference,
-                     fx, fy, lx, ly, alpha, beta, gap, ext)
+                     fx, fy, lx, ly, alpha, beta, gap, ext, log=False)
 
 
 def la_exp(scores, lx, ly, beta, gap, ext, *, scores2=None, alpha=1.0) -> torch.Tensor:
     """K of the LA kernel on a (B, Lx, Ly) float32 score tensor (K4), or on
     ``alpha*scores + scores2`` when ``scores2`` is given.  Returns (B,)."""
     return _materialised(la_exp, "la_exp_f32", la_exp_reference, scores, lx, ly,
-                         beta, gap, ext, scores2, alpha)
+                         beta, gap, ext, scores2, alpha, log=False)
 
 
 def la_log(scores, lx, ly, beta, gap, ext, *, scores2=None, alpha=1.0) -> torch.Tensor:
@@ -383,8 +416,27 @@ def la_log_at(geometry, scores, lx, ly, beta, gap, ext, *, scores2=None,
                          ext, scores2, alpha, log=True, geometry=geometry)
 
 
+def la_exp_factored_at(geometry, fx, fy, lx, ly, alpha, beta, gap, ext) -> torch.Tensor:
+    """:func:`la_exp_factored` on the card at ``geometry``, as
+    :func:`la_log_factored_at`.  Counts in ``la_exp_factored.launches``."""
+    if fx.device.type != "cuda":
+        raise ValueError("a lane geometry is a CUDA launch; the CPU has one plain version")
+    return _factored(la_exp_factored, "la_exp_factored_f32", la_exp_factored_reference,
+                     fx, fy, lx, ly, alpha, beta, gap, ext, log=False, geometry=geometry)
+
+
+def la_exp_at(geometry, scores, lx, ly, beta, gap, ext, *, scores2=None,
+              alpha=1.0) -> torch.Tensor:
+    """:func:`la_exp` on the card at ``geometry``, as :func:`la_log_factored_at`."""
+    if scores.device.type != "cuda":
+        raise ValueError("a lane geometry is a CUDA launch; the CPU has one plain version")
+    return _materialised(la_exp, "la_exp_f32", la_exp_reference, scores, lx, ly, beta, gap,
+                         ext, scores2, alpha, log=False, geometry=geometry)
+
+
 for _w in (la_log_factored, la_exp_factored, la_exp, la_log):
     _w.launches = 0  # wrapper calls that launched the kernel
+    _w.launches_lanes = 0  # those of them on a lane geometry
 
 
 # ------------------------------------------------------------- dispatchers

@@ -244,15 +244,105 @@ def _case_log_edge(case):
     return tl.la_log_reference(*_t(*ops), *PARAMS, **kw_t), want, 1e-4
 
 
+_EXP_EDGE_CASES = ([f"K3 rank {r} Ly={w}" for w in _EDGE_LY for r in (2, 6)]
+                   + [f"K4 Ly={w}" for w in _EDGE_LY]
+                   + ["K4 two slabs Ly=65", "K4 two slabs Ly=129"])
+# the exp lane route's widest width, Lx != Ly, log emissions -8..-3 so that K stays finite
+_EXP_WIDE_CASES = ["K3 300x500", "K4 300x500", "K4 two slabs 300x500"]
+_EXP_CASES = _EXP_EDGE_CASES + _EXP_WIDE_CASES
+
+
+def _overflow_emissions(rng):
+    """(log emissions (8, 40, 50), lx, ly): pairs 0-2 finite; 3 emits +3 a
+    cell, so the closure passes the largest f32; 4 has one cell of 100,
+    whose exp is inf; 5 one cell of 87.5 (e = 1e38) among cells of -8..-3,
+    finite; 6 emits 4..6 on 3 x 4 cells, finite; 7 emits +1 with ly = 0."""
+    le = rng.uniform(-3.0, -1.0, (8, 40, 50))
+    le[3] = 3.0
+    le[4, 20, 30] = 100.0
+    le[5] = rng.uniform(-8.0, -3.0, (40, 50))
+    le[5, 10, 10] = 87.5
+    le[6] = rng.uniform(4.0, 6.0, (40, 50))
+    le[7] = 1.0
+    lx = np.array([40, 31, 17, 40, 40, 40, 3, 40], np.int32)
+    ly = np.array([50, 50, 26, 50, 50, 50, 4, 0], np.int32)
+    return le, lx, ly
+
+
+def _exp_operands(case):
+    """(numpy operands, scores2) of an exp-kernel case under PARAMS (and
+    ALPHA): K3 factors (fx, fy, lx, ly) or K4 scores (s, lx, ly).  Edge
+    widths have Lx != Ly, ragged lengths that include the full pad and log
+    emissions in -3..-1 (K up to about 1e16); "300x500" has log emissions in
+    -8..-3; "overflow" is the batch of :func:`_overflow_emissions`.  K3 carries
+    a column's emission in slot 2 (slot 0 at rank 2) beside noise in the
+    others, and the overflow batch's single cells in slot 3; K4's two slabs
+    carry half of it each."""
+    rng = np.random.default_rng(sum(map(ord, case)))
+    beta = PARAMS[0]
+    if "overflow" in case:
+        le, lx, ly = _overflow_emissions(rng)
+        if case.startswith("K4"):
+            return ((le / beta).astype(np.float32), lx, ly), None
+        fx, fy = np.zeros((8, 40, 6)), np.zeros((8, 50, 6))
+        fx[:, :, 2] = 1.0
+        fy[:, :, 2] = le[:, 0, :] / beta
+        for p, (i, j) in ((4, (20, 30)), (5, (10, 10))):
+            fx[p, i, 3] = 1.0
+            fy[p, j, 3] = (le[p, i, j] - le[p, 0, j]) / beta
+        return (fx.astype(np.float32), fy.astype(np.float32), lx, ly), None
+    if "300x500" in case:
+        lo, hi, lx_max, w = -8.0, -3.0, 300, 500
+        lx = np.array([300, 211, 57, 300], np.int32)
+        ly = np.array([500, 500, 333, 1], np.int32)
+    else:
+        w = int(case.split("Ly=")[1])
+        lo, hi, lx_max = -3.0, -1.0, w + 9
+        lx = np.array([lx_max, rng.integers(1, lx_max + 1), rng.integers(1, lx_max + 1), 1],
+                      np.int32)
+        ly = np.array([w, rng.integers(1, w + 1), 1, w], np.int32)
+    if case.startswith("K3"):
+        rank = 2 if "rank 2" in case else 6
+        k, coef = (0, ALPHA * beta) if rank == 2 else (2, beta)
+        fx = rng.normal(size=(4, lx_max, rank)) * 0.3
+        fy = rng.normal(size=(4, w, rank)) * 0.3
+        fx[:, :, k] = rng.uniform(0.9, 1.1, (4, lx_max))
+        fy[:, :, k] = rng.uniform(lo, hi, (4, w)) / coef
+        return (fx.astype(np.float32), fy.astype(np.float32), lx, ly), None
+    if "two slabs" not in case:
+        return ((rng.uniform(lo, hi, (4, lx_max, w)) / beta).astype(np.float32), lx, ly), None
+    s, s2 = ((rng.uniform(lo, hi, (4, lx_max, w)) / (2 * c)).astype(np.float32)
+             for c in (ALPHA * beta, beta))
+    return (s, lx, ly), s2
+
+
+def _case_exp(case):
+    """(port plain value, JAX interpret value, rtol) of an exp-kernel case."""
+    ops, s2 = _exp_operands(case)
+    if case.startswith("K3"):
+        want = jp.la_exp_factored(*_j(*ops), ALPHA, *PARAMS, block_b=8, interpret=True)
+        return tl.la_exp_factored_reference(*_t(*ops), ALPHA, *PARAMS), want, 1e-4
+    kw_j, kw_t = {}, {}
+    if s2 is not None:
+        kw_j = {"scores2": jnp.asarray(s2), "alpha": ALPHA}
+        kw_t = {"scores2": torch.as_tensor(s2), "alpha": ALPHA}
+    want = jp.la_exp_pallas(*_j(*ops), *PARAMS, block_b=8, interpret=True, **kw_j)
+    return (tl.la_exp_reference(*_t(*ops), *PARAMS, **kw_t), want,
+            2e-4 if s2 is not None else 1e-4)
+
+
 @pytest.mark.parametrize("case", ["K2 log factored", "K3 exp factored", "K4 exp",
                                   "K4 exp affine", "K5 log", "K5 log affine",
-                                  "K5 log long", *_LOG_EDGE_CASES])
+                                  "K5 log long", *_LOG_EDGE_CASES, *_EXP_CASES])
 def test_plain_versions_match_pallas_interpret(case):
     """Each kernel's plain version against its Pallas function (interpret);
-    the log kernels also at the cases of :func:`_log_edge_operands`."""
+    the log kernels also at the cases of :func:`_log_edge_operands`, the exp
+    kernels at those of :func:`_exp_operands`."""
     kind = "exp" if " exp" in case else "log"
     if case in _LOG_EDGE_CASES:
         got, want, rtol = _case_log_edge(case)
+    elif case in _EXP_CASES:
+        got, want, rtol = _case_exp(case)
     elif "factored" in case:
         got, want, rtol = _case_factored(kind)
     else:
@@ -505,6 +595,118 @@ def test_lane_geometry_launches_are_checked(bad):
         "K5 on the CPU": lambda: tl.la_log_at((32, 1), torch.zeros(2, 5, 4), lx, ly, *PARAMS),
         "too narrow": lambda: tl._geometry_dims((32, 1), 10, 33),
         "not in the library": lambda: tl._geometry_dims((16, 4), 10, 64),
+    }
+    with pytest.raises(ValueError):
+        calls[bad]()
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K4"])
+def test_exp_plain_version_overflows_where_jax_does(kernel):
+    """On the overflow batch the plain version is non-finite exactly on the
+    pairs that overflow (3 and 4), as the Pallas function in interpret mode
+    is, and finite elsewhere, within 1e-4 of it; the pair with a cell of
+    e = 1e38 stays finite."""
+    ops, _ = _exp_operands(f"{kernel} overflow")
+    if kernel == "K3":
+        got = tl.la_exp_factored_reference(*_t(*ops), ALPHA, *PARAMS).numpy()
+        want = np.asarray(jp.la_exp_factored(*_j(*ops), ALPHA, *PARAMS, block_b=8,
+                                             interpret=True))
+    else:
+        got = tl.la_exp_reference(*_t(*ops), *PARAMS).numpy()
+        want = np.asarray(jp.la_exp_pallas(*_j(*ops), *PARAMS, block_b=8, interpret=True))
+    finite = [True, True, True, False, False, True, True, True]
+    assert np.isfinite(got).tolist() == finite
+    assert np.isfinite(want).tolist() == finite
+    assert got[5] > 1e37 and got[7] == 1.0
+    np.testing.assert_allclose(got[finite], want[finite], rtol=1e-4)
+
+
+def _exp_launch(case):
+    """(wrapper, at, plain value, operands on the card, scalars, kw) of an
+    exp-kernel case."""
+    ops, s2 = _exp_operands(case)
+    ops = [t.cuda() for t in _t(*ops)]
+    if case.startswith("K3"):
+        wrapper, at, reference = tl.la_exp_factored, tl.la_exp_factored_at, \
+            tl.la_exp_factored_reference
+        scalars, kw = (ALPHA, *PARAMS), {}
+    else:
+        wrapper, at, reference = tl.la_exp, tl.la_exp_at, tl.la_exp_reference
+        kw = {} if s2 is None else {"scores2": torch.as_tensor(s2).cuda(), "alpha": ALPHA}
+        scalars = PARAMS
+    want = reference(*ops, *scalars, **kw).cpu().numpy()
+    return wrapper, at, want, ops, scalars, kw
+
+
+def _exp_geometries(ops, case):
+    width, kind = ((ops[1].shape[1], "factored") if case.startswith("K3")
+                   else (ops[0].shape[2], "scores"))
+    return [(0, 0)] + [g for g in tl.EXP_GEOMETRIES[kind] if g[0] * g[1] >= width]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _EXP_CASES)
+def test_cuda_exp_kernel_matches_plain_version(case):
+    """The exp kernels K3 and K4 on the card against their plain versions at
+    the cases of :func:`_exp_operands`, within the 1e-3 rel gate: on the
+    route's geometry (one launch, counted, on a lane geometry), on every other
+    geometry that holds the width and on the one-warp kernel; and the first 3
+    pairs alone equal to their values inside the batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
+    wrapper, at, want, ops, scalars, kw = _exp_launch(case)
+    launches, lanes = wrapper.launches, wrapper.launches_lanes
+    got = wrapper(*ops, *scalars, **kw).cpu().numpy()
+    assert (wrapper.launches, wrapper.launches_lanes) == (launches + 1, lanes + 1)
+    np.testing.assert_allclose(got, want, rtol=1e-3)
+    kw3 = {k: v[:3].contiguous() if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+    alone = wrapper(*[o[:3].contiguous() for o in ops], *scalars, **kw3).cpu().numpy()
+    assert np.array_equal(alone, got[:3])
+    for geo in _exp_geometries(ops, case):
+        np.testing.assert_allclose(at(geo, *ops, *scalars, **kw).cpu().numpy(), want, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K3", "K4"])
+def test_cuda_exp_kernel_overflows_where_the_plain_version_does(kernel):
+    """On the overflow batch every exp geometry is non-finite exactly where
+    the plain version is, and within 1e-3 of it elsewhere."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
+    wrapper, at, want, ops, scalars, kw = _exp_launch(f"{kernel} overflow")
+    finite = np.isfinite(want)
+    assert not finite.all()
+    for geo in _exp_geometries(ops, kernel):
+        got = at(geo, *ops, *scalars, **kw).cpu().numpy()
+        assert np.array_equal(np.isfinite(got), finite), geo
+        np.testing.assert_allclose(got[finite], want[finite], rtol=1e-3)
+
+
+def test_exp_route_covers_every_width():
+    """Every padded shape up to LANE_MAX_LEN rows and columns takes an exp
+    lane geometry the library holds and that holds the width; longer or
+    wider ones take the one-warp kernel."""
+    for factored in (True, False):
+        for w in range(1, tl.LANE_MAX_LEN + 1):
+            lanes, cols = tl.exp_route(tl.LANE_MAX_LEN, w, factored)
+            library = tl.EXP_GEOMETRIES["factored" if factored else "scores"]
+            assert (lanes, cols) in library and lanes * cols >= w
+        for rows, w in ((1, tl.LANE_MAX_LEN + 1), (1, 1024), (1, tl.MAX_LY),
+                        (tl.LANE_MAX_LEN + 1, 120), (5000, 1)):
+            assert tl.exp_route(rows, w, factored) == (0, 0)
+
+
+@pytest.mark.parametrize("bad", ["K3 on the CPU", "K4 on the CPU", "too narrow",
+                                 "not in the library"])
+def test_exp_lane_geometry_launches_are_checked(bad):
+    fx, fy = torch.zeros(2, 5, 6), torch.zeros(2, 4, 6)
+    lx = torch.tensor([5, 3], dtype=torch.int32)
+    ly = torch.tensor([4, 1], dtype=torch.int32)
+    calls = {
+        "K3 on the CPU": lambda: tl.la_exp_factored_at((32, 1), fx, fy, lx, ly, ALPHA, *PARAMS),
+        "K4 on the CPU": lambda: tl.la_exp_at((32, 1), torch.zeros(2, 5, 4), lx, ly, *PARAMS),
+        "too narrow": lambda: tl._geometry_dims((32, 1), 10, 33, log=False),
+        "not in the library": lambda: tl._geometry_dims((16, 4), 10, 64, log=False),
     }
     with pytest.raises(ValueError):
         calls[bad]()
