@@ -101,9 +101,31 @@ Phases (the first failure exits non-zero; nothing is caught):
    sequences of 60-90 nt, banded (``-b 8``) and dense, within 1e-4;
 15. K6 time against its plain version (B = 16, n = 301), the ``-b 16``
    train Gram's pairs/s, and the device busy share of its first 20 batches
-   under torch.profiler.
+   under torch.profiler;
+16. optimizer path (no K1-K6 kernel on it): the stem path's generator cut to
+   48-60 nt (100 + 100 sequences), folded on the card; K and dK/d(alpha,
+   beta, gap, ext) of all 20,100 pairs by ``bpla_optimizer.
+   bpla_matrix_with_grads`` (the 7-state flank scan, gradients by autograd),
+   finite, with the largest log K, three timed calls
+   (pairs/s) and the device busy share of one call traced for device
+   events; the same function on 8 sequences
+   with ``device=cpu``, K within 1e-4 rel and each dK/dp within 1e-4 of its
+   largest; one ``optimize_kernel_params`` run (ncv=5, max_steps=3, the
+   CLI's bounds) with its wall time and K+dK evaluations; the
+   ``bpla_optimizer -n --fold 2`` CLI on 20 + 20 sequences with ``--device
+   cuda`` and ``--device cpu``, printed parameters and C within 1e-3 rel;
+   and 4 pairs of 80 nt, where f32 overflows, non-finite on the card
+   exactly where on the CPU;
+17. ``rbf_optimizer``, ``poly_optimizer`` and ``sigmoid_optimizer`` on a
+   48-point LIBSVM file, 3 folds (host numpy);
+18. ``la_kernel_lite`` (default and ``--use-bp``), ``string_kernel`` and
+   ``simpal``: train on phase 16's corpus, ``svm_tools train``, predict on
+   20 + 20 held-out sequences; each Gram finite, symmetric, unit diagonal;
+   ``--device cpu`` against ``cuda`` on 8 sequences within 5e-7, 1e-4, 1e-6
+   and 1e-4; each train Gram's pairs/s and busy share.
 
-Before each path every launch count is set to 0, and it is read just after.
+Before each path every launch count is set to 0, and it is read just after;
+phases 16-18 must leave every count at 0.
 The line before the last lists every kernel with its launches on the main
 path, its error against its plain version, its time, its plain version's
 time and its bound: the larger of the bytes it must move over 3.35 TB/s and
@@ -187,6 +209,16 @@ WIDE_BAND = 40  # K6 past its former limit of band 32
 LA_EXP_OPS = 12  # m = e(1 + a + bg g), the closure recurrence, g', the sum, exp
 LA_LOG_OPS = 30  # three logaddexp, the row max, exp(m - r), the closure, log
 K6_OPS = 23  # injection 6, window scans 6, re-anchor and combine 10, max 1
+OPT_LEN = (48, 60)  # the optimizer corpus: f32 K and dK stay finite up to ~70 nt
+OPT_RTOL = 1e-4  # K and each dK/dp, --device cpu against cuda
+OPT_CLI_N = 20  # sequences a class of the bpla_optimizer CLI run
+OPT_CLI_RTOL = 1e-3  # its printed parameters and C, cpu against cuda
+OVERFLOW_LEN = 80  # the flank kernel's overflow batch
+CLASSIC_N = 48  # points of the classic optimizers' LIBSVM file
+SMALL_N = 4  # sequences a class of the cpu-against-cuda runs
+# the string-family CLIs: (name, flags, cpu-against-cuda band of the Gram)
+STRING_CLIS = (("la_kernel_lite", [], 5e-7), ("la_kernel_lite", ["--use-bp"], 1e-4),
+               ("string_kernel", [], 1e-6), ("simpal", [], 1e-4))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -781,6 +813,298 @@ def k6_values(path: str) -> int:
     return 0
 
 
+def max_rel(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+def run_cli(main_fn, argv: list) -> str:
+    """Run a CLI's main in this process; its standard output, also printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    check(rc == 0, f"{main_fn.__module__} {argv}: exit code {rc}")
+    print(buf.getvalue(), end="")
+    return buf.getvalue()
+
+
+def printed_params(out: str) -> np.ndarray:
+    """(C, alpha, beta, gap, ext) from bpla_optimizer's last line."""
+    import re
+
+    m = re.search(r"C=(\S+), alpha=(\S+), beta=(\S+), gap=(\S+), ext=(\S+)", out)
+    check(m is not None, f"bpla_optimizer printed no parameters: {out!r}")
+    return np.array([float(v) for v in m.groups()])
+
+
+def slice4_phases(dev, smi: str, reset_counts, counts) -> None:
+    """Phases 16-18: the optimizers and the string-family CLIs.  No K1-K6
+    kernel lies on these paths: every launch count must stay 0."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from stem_kernel_torch.cli import (
+        bpla_optimizer, classic_optimizers, la_kernel_lite, simpal, string_kernel, svm_tools,
+    )
+    from stem_kernel_torch.fold.bpmatrix import bpp_for_alignments, fold_sequences
+    from stem_kernel_torch.gram.engine import PairKernelEngine
+    from stem_kernel_torch.gram.io import read_precomputed
+    from stem_kernel_torch.io.profile import Alignment
+    from stem_kernel_torch.models.bpla import (
+        DEFAULT_BPLA_SCORE_TABLE, bpla_kernel_batch, bpla_score_parts, pair_mask,
+    )
+    from stem_kernel_torch.models.featurize import (
+        bpla_features, loop_profile_weights, plain_string_features, string_kernel_features,
+    )
+    from stem_kernel_torch.models.simpal import pal_features, simpal_kernel_fn
+    from stem_kernel_torch.models.string_kernel import StringKernel, plain_string_kernel
+    from stem_kernel_torch.opt.optimizer import optimize_kernel_params
+    from stem_kernel_torch.utils.shuffle import dinucleotide_shuffle
+
+    def no_kernels(phase: str) -> None:
+        got = counts()
+        print(f"{phase}: K1-K6 launch counts {got}")
+        check(not any(got.values()), f"{phase} launched a K1-K6 kernel: {got}")
+
+    # the stem path's generator, seed 0, each sequence cut to 48-60 nt
+    rng = np.random.default_rng(SEED)
+    fam = make_family(rng, N_TRAIN + N_TEST, SEQ_LEN)
+    shuf = [dinucleotide_shuffle(s, rng) for s in fam]
+    overflow_seqs = trim(rng, fam[:2] + shuf[:2], OVERFLOW_LEN, OVERFLOW_LEN)
+    fam, shuf = trim(rng, fam, *OPT_LEN), trim(rng, shuf, *OPT_LEN)
+    pos, tpos = fam[:N_TRAIN], fam[N_TRAIN:]
+    neg, tneg = shuf[:N_TRAIN], shuf[N_TRAIN:]
+    train = pos + neg
+    n = len(train)
+    n_pairs = n * (n + 1) // 2
+    tmp_dir = tempfile.TemporaryDirectory()
+    p = lambda f: os.path.join(tmp_dir.name, f)  # noqa: E731
+    for name, seqs in (("pos", pos), ("neg", neg), ("tpos", tpos), ("tneg", tneg),
+                       ("cpos", pos[:OPT_CLI_N]), ("cneg", neg[:OPT_CLI_N]),
+                       ("spos", pos[:SMALL_N]), ("sneg", neg[:SMALL_N])):
+        write_fasta(p(f"{name}.fa"), seqs, name)
+    table = DEFAULT_BPLA_SCORE_TABLE
+    params = np.array(BPLA, np.float64)  # alpha, beta, gap, ext
+
+    # ---- 16. optimizer path: K and dK by autograd on the card ----
+    reset_counts()
+    t_phase = time.perf_counter()
+    alns = [Alignment(rows=[s]) for s in train]
+    feats = bpla_features(alns, bpp_for_alignments(alns, device=dev))
+
+    def kdk(f, device, normalize=True):
+        return bpla_optimizer.bpla_matrix_with_grads(f, table, params, device=device,
+                                                     normalize=normalize)
+
+    # the self pairs' raw K, which with the normalized K gives every pair's
+    x = pick(feats, np.arange(n), dev)
+    wp, wu = bpla_score_parts(x["profile"], x["p_left"], x["p_right"], x["p_unpair"],
+                              x["profile"], x["p_left"], x["p_right"], x["p_unpair"],
+                              torch.as_tensor(table, device=dev))
+    self_k, self_g = bpla_kernel_batch(wp, wu, pair_mask(x["length"], wp.shape[1], x["length"],
+                                                         wp.shape[2]), params, with_grads=True)
+    self_k, self_g = self_k.cpu().numpy(), self_g.cpu().numpy()
+    check(bool(np.isfinite(self_k).all() and np.isfinite(self_g).all()),
+          "K or dK of the optimizer corpus's self pairs is not finite")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        k, g = kdk(feats, dev)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    check(bool(np.isfinite(k).all() and np.isfinite(g).all()),
+          "normalized K or dK of the optimizer corpus is not finite")
+    # device events only: a CPU trace of its ~250k autograd ops would
+    # stretch the traced call several times over
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        kdk(feats, dev)
+        torch.cuda.synchronize()
+        traced_s = time.perf_counter() - t0
+    busy_us, _ = device_us(prof)
+    busy = ("not measured (the trace holds no device events)" if busy_us == 0.0 else
+            f"device {busy_us / 1e3:.1f} ms of a traced {1e3 * traced_s:.1f} ms "
+            f"({100 * busy_us / 1e6 / traced_s:.1f}% busy; "
+            f"{100 * busy_us / 1e6 / np.mean(times):.1f}% of an untraced call)")
+    lens = feats["length"]
+    log_d = np.log(self_k.astype(np.float64))
+    log_k = np.log(k) + 0.5 * (log_d[:, None] + log_d[None, :])
+    print(f"optimizer path on {smi}: K+dK (normalize) of {n} sequences of {lens.min()}-"
+          f"{lens.max()} nt, {n_pairs} pairs in batches of 256: largest log K "
+          f"{float(log_k.max()):.3f} (of a self pair {float(log_d.max()):.3f}, its |dK/dp| up "
+          f"to {np.abs(self_g).max():.3e}); "
+          f"{', '.join(f'{t:.3f}' for t in times)} s, "
+          f"{', '.join(f'{n_pairs / t:.1f}' for t in times)} pairs/s; traced call: {busy}")
+    no_kernels("optimizer K+dK")
+
+    # the same function on the CPU: 8 sequences, 36 pairs
+    small = {key: np.concatenate([v[:SMALL_N], v[N_TRAIN:N_TRAIN + SMALL_N]])
+             for key, v in feats.items()}
+    for normalize in (False, True):
+        kc, gc = kdk(small, "cpu", normalize)
+        kg, gg = kdk(small, dev, normalize)
+        k_err = max_rel(kg, kc)
+        g_err = [float(np.abs(gg[q] - gc[q]).max() / np.abs(gc[q]).max()) for q in range(4)]
+        print(f"K+dK (normalize={normalize}), {2 * SMALL_N} sequences, cuda vs cpu: K max rel "
+              f"{k_err:.3e}, dK/d(alpha, beta, gap, ext) max abs / max |dK/dp| "
+              f"{', '.join(f'{e:.3e}' for e in g_err)} (limit {OPT_RTOL})")
+        check(k_err <= OPT_RTOL and max(g_err) <= OPT_RTOL, "K+dK: cuda and cpu disagree")
+
+    # one optimizer run: L-BFGS-B over (C, params), 5-fold smoothed AUC
+    reset_counts()
+    labels = np.array([1.0] * N_TRAIN + [-1.0] * N_TRAIN)
+    kernel_s = []
+
+    def kernel_fn(q):
+        t0 = time.perf_counter()
+        out = bpla_optimizer.bpla_matrix_with_grads(feats, table, q, device=dev, normalize=True)
+        kernel_s.append(time.perf_counter() - t0)
+        return out
+
+    t0 = time.perf_counter()
+    opt_params, opt_c, opt_f = optimize_kernel_params(
+        labels, kernel_fn, params, 1.0, lower=bpla_optimizer.LOWER,
+        upper=bpla_optimizer.UPPER, bound_types=bpla_optimizer.BOUND_TYPES, ncv=5, max_steps=3)
+    opt_s = time.perf_counter() - t0
+    check(bool(np.isfinite(opt_params).all() and np.isfinite(opt_f)),
+          "the optimizer run ended on a non-finite point")
+    host_s = opt_s - sum(kernel_s)
+    print(f"optimizer run on {smi} (N={n}, ncv=5, max_steps=3, normalize): {opt_s:.3f} s, "
+          f"{len(kernel_s)} K+dK evaluations ({sum(kernel_s):.3f} s; "
+          f"{sum(kernel_s) / len(kernel_s):.3f} s each), SVM, CG and the rest on the host "
+          f"{host_s:.3f} s ({host_s / len(kernel_s):.3f} s an evaluation); an objective "
+          f"evaluation {opt_s / len(kernel_s):.3f} s; f {opt_f:.6f}, C {opt_c:g}, params "
+          f"{opt_params}")
+    no_kernels("optimizer run")
+
+    # the bpla_optimizer CLI end to end, --device cuda against --device cpu;
+    # normalized: unnormalized K of 48-60 nt reaches 1e29, where the SMO's
+    # stopping test (1e-3 on gradients of that size) lies below f64 resolution
+    cli_args = ["-n", "--fold", "2", "+1", p("cpos.fa"), "-1", p("cneg.fa")]
+    cli = {}
+    for d in ("cuda", "cpu"):
+        reset_counts()
+        t0 = time.perf_counter()
+        cli[d] = printed_params(run_cli(bpla_optimizer.main, ["--device", d, *cli_args]))
+        print(f"bpla_optimizer --device {d} -n --fold 2, {2 * OPT_CLI_N} sequences: "
+              f"{time.perf_counter() - t0:.2f} s")
+        no_kernels(f"bpla_optimizer --device {d}")
+    cli_err = max_rel(cli["cuda"], cli["cpu"])
+    print(f"bpla_optimizer cuda vs cpu: (C, alpha, beta, gap, ext) {cli['cuda']} vs "
+          f"{cli['cpu']}, max rel {cli_err:.3e} (limit {OPT_CLI_RTOL})")
+    check(cli_err <= OPT_CLI_RTOL, "bpla_optimizer: cuda and cpu parameters disagree")
+
+    # overflow: a self pair of 80 nt overflows f32, three cross pairs do not
+    reset_counts()
+    ov_alns = [Alignment(rows=[s]) for s in overflow_seqs]
+    ov_feats = bpla_features(ov_alns, bpp_for_alignments(ov_alns, device="cpu"))
+    ix, iy = np.array([0, 0, 2, 0]), np.array([0, 1, 3, 2])
+    ov = {}
+    for key, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+        x, y = pick(ov_feats, ix, d), pick(ov_feats, iy, d)
+        wp, wu = bpla_score_parts(x["profile"], x["p_left"], x["p_right"], x["p_unpair"],
+                                  y["profile"], y["p_left"], y["p_right"], y["p_unpair"],
+                                  torch.as_tensor(table, device=d))
+        mask = pair_mask(x["length"], wp.shape[1], y["length"], wp.shape[2])
+        vals, grads = bpla_kernel_batch(wp, wu, mask, params, with_grads=True)
+        ov[key] = (vals.cpu().numpy(), grads.cpu().numpy())
+    fin_card, fin_c = np.isfinite(ov["cuda"][0]), np.isfinite(ov["cpu"][0])
+    print(f"flank kernel at {OVERFLOW_LEN} nt, pairs (0,0) (0,1) (2,3) (0,2): values cuda "
+          f"{ov['cuda'][0]} cpu {ov['cpu'][0]}; dK/dp finite (cuda) "
+          f"{np.isfinite(ov['cuda'][1]).all(1)} (cpu) {np.isfinite(ov['cpu'][1]).all(1)}")
+    check(fin_c.any() and not fin_c.all(), "the overflow batch has no overflow (or only)")
+    check(bool((fin_card == fin_c).all()), "the card's non-finite pairs differ from the CPU's")
+    check(max_rel(ov["cuda"][0][fin_c], ov["cpu"][0][fin_c]) <= OPT_RTOL,
+          "the overflow batch's finite values disagree")
+    no_kernels("flank overflow batch")
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 17. classic optimizers on a LIBSVM file ----
+    t_phase = time.perf_counter()
+    crng = np.random.default_rng(SEED + 4)
+    pts = crng.normal(size=(CLASSIC_N, 3))
+    pts[: CLASSIC_N // 2] += 1.0
+    with open(p("classic.svm"), "w") as f:
+        for i, row in enumerate(pts):
+            label = "+1" if i < CLASSIC_N // 2 else "-1"
+            f.write(f"{label} " + " ".join(f"{j + 1}:{v:g}" for j, v in enumerate(row)) + "\n")
+    for kind in ("rbf", "poly", "sigmoid"):
+        reset_counts()
+        t0 = time.perf_counter()
+        out = run_cli(getattr(classic_optimizers, f"{kind}_main"), ["--fold", "3", p("classic.svm")])
+        check("Optimized Parameters" in out, f"{kind}_optimizer printed no parameters")
+        no_kernels(f"{kind}_optimizer ({time.perf_counter() - t0:.1f} s)")
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 18. string-family CLIs: train, svm train, predict; cpu against cuda ----
+    clis = {"la_kernel_lite": la_kernel_lite.main, "string_kernel": string_kernel.main,
+            "simpal": simpal.main}
+    train_labels = ["+1"] * N_TRAIN + ["-1"] * N_TRAIN
+    talns = [Alignment(rows=[s]) for s in train]
+    t_phase = time.perf_counter()
+    for name, flags, band in STRING_CLIS:
+        label = " ".join([name, *flags])
+        tag = "_".join([name, *flags]).replace("-", "")
+        main_fn = clis[name]
+        reset_counts()
+        t0 = time.perf_counter()
+        main_fn(["--device", "cuda", *flags, "-n", p(f"{tag}.dat"),
+                 "+1", p("pos.fa"), "-1", p("neg.fa")])
+        train_s = time.perf_counter() - t0
+        svm_tools.train_main([p(f"{tag}.dat"), p(f"{tag}.model")])
+        t0 = time.perf_counter()
+        main_fn(["--device", "cuda", *flags, "-n", p(f"{tag}_test.dat"),
+                 "--model", p(f"{tag}.model"), "--predict", p(f"{tag}_pred.txt"),
+                 "+1", p("pos.fa"), "-1", p("neg.fa"),
+                 "--test", "+1", p("tpos.fa"), "-1", p("tneg.fa")])
+        predict_s = time.perf_counter() - t0
+        no_kernels(label)
+        got_labels, gram = read_precomputed(p(f"{tag}.dat"))
+        gram_checks(label, gram, n, got_labels, train_labels)
+        auc = predictions(p(f"{tag}_pred.txt"), 2 * N_TEST, label)
+        for d in ("cuda", "cpu"):
+            main_fn(["--device", d, *flags, "-n", p(f"{tag}_small_{d}.dat"),
+                     "+1", p("spos.fa"), "-1", p("sneg.fa")])
+        diff = float(np.abs(read_precomputed(p(f"{tag}_small_cuda.dat"))[1]
+                            - read_precomputed(p(f"{tag}_small_cpu.dat"))[1]).max())
+        # the train Gram alone, on the CLI's features and kernel
+        if name == "la_kernel_lite":
+            weights = loop_profile_weights(talns, device=dev) if flags else None
+            gram_feats = string_kernel_features(talns, weights=weights)
+            sk = StringKernel(0.6, alpha=0.2).to(dev)
+
+            def kernel_fn(x, y, sk=sk):
+                return sk(x["profile"], x["length"], y["profile"], y["length"],
+                          wx=x["weight"], wy=y["weight"])
+        elif name == "string_kernel":
+            gram_feats = plain_string_features(train)
+
+            def kernel_fn(x, y):
+                return plain_string_kernel(x["codes"], x["length"], y["codes"], y["length"], 1.0)
+        else:
+            gram_feats = {"pal": np.stack([pal_features(s, b) for s, b in zip(
+                train, fold_sequences(train, device=dev))])}
+            kernel_fn = simpal_kernel_fn(device=dev)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        PairKernelEngine(kernel_fn, gram_feats, device=dev).gram(normalize=True)
+        torch.cuda.synchronize()
+        gram_s = time.perf_counter() - t0
+        busy = device_busy(PairKernelEngine(kernel_fn, gram_feats, device=dev), n, "")
+        no_kernels(f"{label} Gram")
+        print(f"{label} on {smi}: train Gram {gram.shape}, {n_pairs / gram_s:.1f} pairs/s "
+              f"({gram_s:.3f} s, batch 256; first 20 batches traced: {busy}); train flow "
+              f"{train_s:.2f} s, predict flow {2 * N_TEST / predict_s:.2f} rows/s "
+              f"({predict_s:.2f} s), AUC {auc:.4f}; {2 * SMALL_N} sequences cuda vs cpu: "
+              f"Gram max abs diff {diff:.3e} (band {band})")
+        check(diff <= band, f"{label}: cuda and cpu Grams disagree")
+    print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+    tmp_dir.cleanup()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -802,7 +1126,7 @@ def main() -> int:
     )
     from stem_kernel_torch.models.featurize import bpla_features
     from stem_kernel_torch.models.stem_kernel import fixed_point_operands, subst_co_table
-    from stem_kernel_torch.ops import la
+    from stem_kernel_torch.ops import full_f32, la
     from stem_kernel_torch.ops._build import BUILD_DIR, PTXAS_LOG, build
     from stem_kernel_torch.ops.full_stem_banded import (
         full_stem_banded_log, full_stem_banded_log_reference,
@@ -828,8 +1152,7 @@ def main() -> int:
         return {k: w.launches for k, w in wrappers.items()}
 
     # ---- 1. environment ----
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_f32()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -1594,6 +1917,8 @@ def main() -> int:
           f"band={FULL_BAND}, lx != ly); -b {FULL_BAND} Gram {n_full_pairs / full_gram_s:.1f} pairs/s "
           f"({full_gram_s:.2f} s, batch 16); train flow {full_train_s:.2f} s, predict flow "
           f"{FULL_TEST / full_predict_s:.2f} rows/s ({full_predict_s:.2f} s)")
+
+    slice4_phases(dev, smi, reset_counts, counts)
 
     meta = {
         "K1": ("stem_fixed_point", "stem_kernel_torch/csrc/stem_fixed_point.cu",

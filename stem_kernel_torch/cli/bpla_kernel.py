@@ -16,12 +16,12 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
-import torch
 
 from ..fold.bpmatrix import bpp_for_alignments
 from ..io.alphabet import encode
 from ..models.bpla import DEFAULT_BPLA_SCORE_TABLE, BPLAKernel
 from ..models.featurize import bpla_features
+from ..ops import full_f32
 from .app import (
     NOT_YET_PORTED,
     add_common_options,
@@ -67,9 +67,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    # plain f32 products stay f32 on the card
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_f32()  # plain f32 products stay f32 on the card
     p = build_parser()
     ns = parse_args_with_positionals(p, argv)
     reject_unported(p, ns, {**NOT_YET_PORTED, **FOLD_NOT_YET_PORTED})

@@ -21,6 +21,7 @@ import torch
 from ..io.aaprofile import aa_features
 from ..models.blosum_data import BLOSUM62
 from ..models.bpla import la_score_matrix, local_alignment_max, pair_mask
+from ..ops import full_f32
 from ..ops.la import la_exp_auto
 from .app import (
     NOT_YET_PORTED,
@@ -47,9 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    # plain f32 products stay f32 on the card
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_f32()  # plain f32 products stay f32 on the card
     p = build_parser()
     ns = parse_args_with_positionals(p, argv)
     reject_unported(p, ns, NOT_YET_PORTED)

@@ -21,12 +21,12 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
-import torch
 
 from ..fold.bpmatrix import fold_sequences
 from ..io.alphabet import encode
 from ..models.full_stem import full_stem_kernel, pair_weights
 from ..models.phmm import posterior_windows
+from ..ops import full_f32
 from ..ops.full_stem_banded import full_stem_banded_log
 from .app import (
     NOT_YET_PORTED,
@@ -60,9 +60,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    # plain f32 products stay f32 on the card
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_f32()  # plain f32 products stay f32 on the card
     p = build_parser()
     ns = parse_args_with_positionals(p, argv)
     reject_unported(p, ns, NOT_YET_PORTED)

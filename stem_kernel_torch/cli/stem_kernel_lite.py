@@ -14,8 +14,6 @@ from __future__ import annotations
 
 import argparse
 
-import torch
-
 from ..fold.bpmatrix import BPMatrixOptions
 from ..fold.params import default_params, fast_variant
 from ..models.composite import (
@@ -24,6 +22,7 @@ from ..models.composite import (
     featurize_stem_examples,
     make_stem_lite_kernel_fn,
 )
+from ..ops import full_f32
 from .app import (
     NOT_YET_PORTED,
     add_common_options,
@@ -119,9 +118,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    # plain f32 products stay f32 on the card
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_f32()  # plain f32 products stay f32 on the card
     p = build_parser()
     ns = parse_args_with_positionals(p, argv)
     if ns.coarse_shapes:

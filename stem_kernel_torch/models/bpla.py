@@ -11,6 +11,10 @@ Port of ``stem_kernel_tpu/models/bpla.py``:
   telescopes to 1 + sum M), as the plain row-loop scans
   :func:`local_alignment_exp` and :func:`local_alignment_log`, and the
   Smith-Waterman maximum :func:`local_alignment_max`;
+- the optimizer's 7-state kernel :func:`local_alignment_exp_flank` and
+  :func:`bpla_kernel_batch`, values and per-pair dK/d(alpha, beta, gap,
+  ext) by autograd through the plain scan (the reference hand-writes the
+  backward sweep, bpla_kernel.cpp:244-401);
 - :class:`BPLAKernel`, which evaluates the first two through the LA kernels
   of ``ops/la.py`` (factored for score tables of rank <= 6, materialised
   above) and the maximum through its scan on every device.
@@ -31,7 +35,7 @@ from ..ops.la import (
     la_exp_affine_auto, la_exp_factored, la_log_affine_auto, la_log_factored,
 )
 from ..ops.recurrence import (
-    linear_recurrence, logsumexp_recurrence, maxplus_recurrence, toeplitz_powers,
+    linear_recurrence, logsumexp_recurrence, maxplus_recurrence, toeplitz_powers_rows,
 )
 
 NEG_LARGE = -1e30
@@ -97,30 +101,108 @@ def _f32(x: float) -> float:
     return torch.tensor(float(x), dtype=torch.float32).item()
 
 
-def local_alignment_exp(scores: torch.Tensor, mask: torch.Tensor, beta: float,
-                        gap: float, ext: float) -> torch.Tensor:
-    """Sum-over-alignments kernel values (B,) from scores (B, Lx, Ly): the
-    plain 5-state row scan.  beta, gap and ext are scalars."""
+def _per_pair(v, dt, device) -> torch.Tensor:
+    """A scalar or (B,) parameter as a (1, 1) or (B, 1) tensor."""
+    return torch.as_tensor(v, dtype=dt, device=device).reshape(-1, 1)
+
+
+def _exp_scan(scores: torch.Tensor, mask: torch.Tensor, beta, gap, ext, *,
+              flank: bool) -> torch.Tensor:
+    """The exp-space LA row scan with tensor parameters (differentiable).
+
+    ``flank=False``: the 5-state kernel, M = e * (1 + M + X + Y) on the
+    diagonal.  ``flank=True``: the 7-state kernel, whose flanking states
+    feed M position-dependent counts instead of the 1, and whose M[0][0] = 1
+    start unit enters row 1 through the diagonal.
+    """
     bsz, lx, ly = scores.shape
-    b = torch.tensor(float(beta), dtype=torch.float32)
-    bg = torch.exp(b * _f32(gap)).item()
-    be = torch.exp(b * _f32(ext)).item()
-    e = torch.exp(b.item() * scores) * mask.to(scores.dtype)
-    zero_col = torch.zeros(bsz, 1, dtype=scores.dtype, device=scores.device)
-    m_prev = torch.zeros(bsz, ly + 1, dtype=scores.dtype, device=scores.device)
-    x_prev = torch.zeros_like(m_prev)
-    y_prev = torch.zeros_like(m_prev)
-    acc = torch.zeros(bsz, dtype=scores.dtype, device=scores.device)
-    tpow = toeplitz_powers(be, ly, dtype=scores.dtype, device=scores.device)
+    dt, dev = scores.dtype, scores.device
+    beta = _per_pair(beta, dt, dev)  # (1, 1) or (B, 1)
+    bg = torch.exp(beta * _per_pair(gap, dt, dev))
+    be = torch.exp(beta * _per_pair(ext, dt, dev))
+    e = torch.exp(beta[..., None] * scores) * mask.to(dt)
+    zero_col = torch.zeros(bsz, 1, dtype=dt, device=dev)
+    zeros = torch.zeros(bsz, ly + 1, dtype=dt, device=dev)
+    tpow = toeplitz_powers_rows(be, ly, dtype=dt)
+    if flank:
+        # flank counts LX[i-1][j-1] + LY[i-1][j-1] feeding M at row i,
+        # column j: [2, 1, 1, ...] from row 0, [1, 2, 3, ...] after it
+        j_idx = torch.arange(1, ly + 1, dtype=dt, device=dev)
+        one = torch.ones((), dtype=dt, device=dev)
+        flank_row0 = torch.where(j_idx == 1, 2.0 * one, one)
+        flank_rest = torch.where(j_idx == 1, one, j_idx)
+        m_prev = torch.cat([torch.ones(bsz, 1, dtype=dt, device=dev), zeros[:, 1:]], -1)
+    else:
+        m_prev = zeros
+    x_prev, y_prev = zeros, zeros
+    acc = torch.zeros(bsz, dtype=dt, device=dev)
     for i in range(lx):
-        diag = 1.0 + m_prev[:, :-1] + x_prev[:, :-1] + y_prev[:, :-1]
+        if flank:
+            diag = (m_prev[:, :-1] + x_prev[:, :-1] + y_prev[:, :-1]
+                    + (flank_row0 if i == 0 else flank_rest))
+        else:
+            diag = 1.0 + m_prev[:, :-1] + x_prev[:, :-1] + y_prev[:, :-1]
         m_row = torch.cat([zero_col, e[:, i] * diag], dim=-1)
-        x_row = bg * m_prev + be * x_prev
+        # column 0 of X is never filled (in the 7-state kernel it would read
+        # the M[0][0] start unit), so it is pinned to 0
+        x_row = torch.cat([zero_col, (bg * m_prev + be * x_prev)[:, 1:]], dim=-1)
         q = bg * (m_row[:, :-1] + x_row[:, :-1])
         y_row = torch.cat([zero_col, linear_recurrence(be, q, matrix=tpow)], dim=-1)
         acc = acc + m_row.sum(-1)
         m_prev, x_prev, y_prev = m_row, x_row, y_row
     return 1.0 + acc
+
+
+def local_alignment_exp(scores: torch.Tensor, mask: torch.Tensor, beta, gap,
+                        ext) -> torch.Tensor:
+    """Sum-over-alignments kernel values (B,) from scores (B, Lx, Ly): the
+    plain 5-state row scan.  beta, gap and ext are scalars or (B,) tensors;
+    the value is differentiable in them and in ``scores``."""
+    return _exp_scan(scores, mask, beta, gap, ext, flank=False)
+
+
+def local_alignment_exp_flank(scores: torch.Tensor, mask: torch.Tensor, beta, gap,
+                              ext) -> torch.Tensor:
+    """The optimizer's 7-state LA kernel (M/IX/IY/LX/LY/RX/RY), batched.
+
+    A different kernel from :func:`local_alignment_exp`: the reference's
+    BPLA_Forward (bpla_kernel.cpp:179-244) enters M from explicit flanking
+    states whose counts depend on the position (LX[i][j] = 1, LY[i][j] = j
+    for i >= 1; row 0 has LX = [1, 0, ...], LY = 1), and bpla_optimizer
+    fits its parameters against this value, 1 + sum_{i,j} M[i][j].  beta,
+    gap and ext are scalars or (B,) tensors; the value is differentiable in
+    them and in ``scores``.
+    """
+    return _exp_scan(scores, mask, beta, gap, ext, flank=True)
+
+
+def bpla_kernel_batch(w_pair: torch.Tensor, w_unpair: torch.Tensor, mask: torch.Tensor,
+                      params, *, with_grads: bool = False, flank: bool = True):
+    """BPLA kernel values (B,), and with ``with_grads`` also dK/dparams (B, 4).
+
+    params = (alpha, beta, gap, ext), scores = alpha*w_pair + w_unpair;
+    ``flank`` picks the 7-state kernel (the optimizer's) or the 5-state one.
+    The parameters are tiled to (B, 4), so each pair's value depends only on
+    its own row, and one backward pass of the summed values gives every
+    pair's gradient.
+    """
+    bsz = w_pair.shape[0]
+    p_tiled = torch.as_tensor(params, dtype=w_pair.dtype, device=w_pair.device
+                              ).reshape(1, 4).expand(bsz, 4).clone()
+
+    la = local_alignment_exp_flank if flank else local_alignment_exp
+
+    def values(p):
+        return la(p[:, 0, None, None] * w_pair + w_unpair, mask, p[:, 1], p[:, 2], p[:, 3])
+
+    if not with_grads:
+        with torch.no_grad():
+            return values(p_tiled)
+    p_tiled.requires_grad_(True)
+    with torch.enable_grad():
+        vals = values(p_tiled)
+        (grads,) = torch.autograd.grad(vals.sum(), p_tiled)
+    return vals.detach(), grads
 
 
 def local_alignment_log(scores: torch.Tensor, mask: torch.Tensor, beta: float,

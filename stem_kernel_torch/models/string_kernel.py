@@ -15,6 +15,10 @@ recursion is a Python loop over rows, and each row's G1 recurrence is a
 product with the (Ly, Ly) Toeplitz matrix of gap powers
 (:mod:`..ops.recurrence`), exact at any length.
 
+The plain exact-match string kernel (string_kernel/string_kernel.cpp:11-51)
+is the same recursion with v = G0[i-1][j-1] * gap^2 * [x_i == y_j]
+(:func:`exact_match_scores`, :func:`plain_string_kernel`).
+
 Padding contract: with the score tensor zero outside each pair's valid
 region, the value at the padded corner equals the value at the true corner.
 """
@@ -112,3 +116,24 @@ class StringKernel(nn.Module):
         mask_y = torch.arange(py.shape[1], device=py.device)[None, :] < ly[:, None]
         scores = scores * (mask_x[:, :, None] & mask_y[:, None, :])
         return gap_weighted_string_kernel(scores, self.gap)
+
+
+def exact_match_scores(x: torch.Tensor, lx: torch.Tensor, y: torch.Tensor,
+                       ly: torch.Tensor, gap: float) -> torch.Tensor:
+    """Score tensor (B, Lx, Ly) of the plain string kernel: gap^2 where the
+    codes match inside both lengths, 0 elsewhere.
+
+    x, y: (B, L) uint8 codes of ungapped padded sequences; the gap^2 factor
+    folds the two matched characters' gap weights
+    (string_kernel/string_kernel.cpp:42-44) into the scores.
+    """
+    eq = (x[:, :, None] == y[:, None, :]).to(torch.float32)
+    mask_x = torch.arange(x.shape[1], device=x.device)[None, :] < lx[:, None]
+    mask_y = torch.arange(y.shape[1], device=y.device)[None, :] < ly[:, None]
+    valid = (mask_x[:, :, None] & mask_y[:, None, :]).to(torch.float32)
+    return eq * valid * torch.tensor(float(gap), dtype=torch.float32, device=x.device) ** 2
+
+
+def plain_string_kernel(x, lx, y, ly, gap: float) -> torch.Tensor:
+    """The string_kernel binary's kernel (B,) on encoded sequences."""
+    return gap_weighted_string_kernel(exact_match_scores(x, lx, y, ly, gap), gap)

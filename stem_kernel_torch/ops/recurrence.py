@@ -11,7 +11,9 @@ an associative scan.  Here:
       x = b @ T,    T[s, t] = a^(t - s) for t >= s, 0 below,
 
   whose entries are all <= 1 for |a| <= 1: exact, and no overflow at any
-  length;
+  length.  A Python float ``a`` builds T once, in f64; a tensor ``a`` (one
+  weight a row, constant along the axis) builds one T a row,
+  T[r, s, t] = exp((t - s) * log a_r), through which autograd reaches a;
 - log-semiring, ``logsumexp_recurrence``, and max-plus,
   ``maxplus_recurrence``: a doubling (Hillis-Steele) scan, log2(n) steps of
 
@@ -44,22 +46,48 @@ def toeplitz_powers(a: float, n: int, *, device, dtype=torch.float32,
     return t.to(dtype)
 
 
-def linear_recurrence(a: float, b: torch.Tensor, *, reverse: bool = False,
+def toeplitz_powers_rows(a: torch.Tensor, n: int, *, dtype=torch.float32) -> torch.Tensor:
+    """(R, n, n) T with T[r, s, t] = a_r^(t-s) for t >= s, 0 below, from a
+    tensor of R positive weights; differentiable in ``a``.
+
+    The lag is clamped to 0 below the diagonal before the exp (there a
+    negative lag times a negative log a would overflow), and the lower
+    triangle is then zeroed by a select, not a product: the product's
+    backward would multiply the bmm's gradient of those entries, which
+    overflows to inf on pairs near the f32 limit, by 0 into NaN.
+    """
+    idx = torch.arange(n, device=a.device, dtype=torch.float64)
+    lag = idx[None, :] - idx[:, None]
+    log_a = torch.log(a.reshape(-1, 1, 1).to(torch.float64))
+    t = torch.exp(lag.clamp(min=0) * log_a)
+    return torch.where(lag >= 0, t, torch.zeros((), dtype=t.dtype, device=t.device)).to(dtype)
+
+
+def linear_recurrence(a: float | torch.Tensor, b: torch.Tensor, *, reverse: bool = False,
                       matrix: torch.Tensor | None = None) -> torch.Tensor:
     """Solve x[t] = a * x[t-1] + b[t] with x[-1] = 0, along the last axis.
 
-    Element t equals sum_{s<=t} b[s] * a^(t-s).  ``a`` is a Python scalar;
-    ``matrix`` optionally passes a precomputed :func:`toeplitz_powers`
-    (row loops reuse one).  ``reverse`` runs the recurrence from the end.
+    Element t equals sum_{s<=t} b[s] * a^(t-s).  ``a`` is a Python scalar,
+    or a tensor of one weight a row (shape ``b.shape[:-1]`` + (1,), or
+    (1, 1) for all rows) through which gradients flow; ``matrix``
+    optionally passes a precomputed :func:`toeplitz_powers` or
+    :func:`toeplitz_powers_rows` (row loops reuse one).  ``reverse`` runs
+    the recurrence from the end (Python scalar only).
     """
     n = b.shape[-1]
     if matrix is None:
-        matrix = toeplitz_powers(a, n, dtype=b.dtype, device=b.device, reverse=reverse)
+        if isinstance(a, torch.Tensor):
+            if reverse:
+                raise ValueError("a tensor weight runs forward only")
+            matrix = toeplitz_powers_rows(a, n, dtype=b.dtype)
+        else:
+            matrix = toeplitz_powers(a, n, dtype=b.dtype, device=b.device, reverse=reverse)
     # one (1, n) @ (n, n) product per row: a folded (rows, n) @ (n, n) GEMM
     # blocks by the row count, so a row's value would depend on how many
     # rows share the call (the Gram must not change with its batch size)
     rows = b.reshape(-1, 1, n)
-    return torch.bmm(rows, matrix.expand(rows.shape[0], n, n)).reshape(b.shape)
+    return torch.bmm(rows, matrix.reshape(-1, n, n).expand(rows.shape[0], n, n)
+                     ).reshape(b.shape)
 
 
 def _doubling_scan(op, a: float, b: torch.Tensor, reverse: bool) -> torch.Tensor:

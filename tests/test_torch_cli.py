@@ -116,6 +116,9 @@ def test_port_imports_no_jax():
         "import importlib, pkgutil, sys\n"
         "import stem_kernel_torch\n"
         "import stem_kernel_torch.cli.stem_kernel_lite\n"
+        "import stem_kernel_torch.cli.bpla_optimizer, stem_kernel_torch.cli.classic_optimizers\n"
+        "import stem_kernel_torch.cli.la_kernel_lite, stem_kernel_torch.cli.string_kernel\n"
+        "import stem_kernel_torch.cli.simpal, stem_kernel_torch.opt.kernel_entropy\n"
         "for m in pkgutil.walk_packages(stem_kernel_torch.__path__, 'stem_kernel_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
