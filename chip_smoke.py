@@ -23,7 +23,8 @@ Phases (the first failure exits non-zero; nothing is caught):
    of f32;
 4. stem path: ``stem_kernel_lite`` train on 100 hairpin-family sequences and
    100 dinucleotide shuffles (length 120, fixed seed), ``svm_tools train``,
-   then the predict flow on 40 held-out sequences; both K1 routes' launch
+   then the predict flow on 40 held-out sequences (the DAG scan and the SMO
+   on the port's native host library); both K1 routes' launch
    counts must rise, the Gram must be finite, symmetric with unit diagonal, the
    predictions written; a small subset is rerun with ``--device cpu`` (the
    plain versions): the two Grams must agree within the 1.4e-2 CLI band and
@@ -113,7 +114,10 @@ Phases (the first failure exits non-zero; nothing is caught):
    largest; one ``optimize_kernel_params`` run (ncv=5, max_steps=3, the
    CLI's bounds) with its wall time and K+dK evaluations; the
    ``bpla_optimizer -n --fold 2`` CLI on 20 + 20 sequences with ``--device
-   cuda`` and ``--device cpu``, printed parameters and C within 1e-3 rel;
+   cuda`` and ``--device cpu``, each on the native and on the numpy SMO:
+   printed parameters and C within 1e-3 rel on the numpy SMO; on the native
+   SMO the first step and the last objective within 1e-3 rel, the last
+   parameters printed beside each device's native-against-numpy gap;
    and 4 pairs of 80 nt, where f32 overflows, non-finite on the card
    exactly where on the CPU;
 17. ``rbf_optimizer``, ``poly_optimizer`` and ``sigmoid_optimizer`` on a
@@ -122,10 +126,27 @@ Phases (the first failure exits non-zero; nothing is caught):
    ``simpal``: train on phase 16's corpus, ``svm_tools train``, predict on
    20 + 20 held-out sequences; each Gram finite, symmetric, unit diagonal;
    ``--device cpu`` against ``cuda`` on 8 sequences within 5e-7, 1e-4, 1e-6
-   and 1e-4; each train Gram's pairs/s and busy share.
+   and 1e-4; each train Gram's pairs/s and busy share;
+19. the native host code and the Gram-engine options on the stem path:
+   (a) the native DAG scan against the Python scan on the BPPs of phase 4's
+   200 sequences, identical arrays, each one's ms a sequence beside the
+   host's CPU model; (b) the native SMO against the numpy SMO on phase 4's
+   normalised Gram (and the nu-solver) and on a seeded random PSD f32 Gram
+   of N = 2,000, to ``tests/test_native.py``'s tolerances, with iterations
+   and seconds; (c) ``stem_kernel_lite -n --checkpoint`` train: phase 4's
+   Gram bit for bit and phase 4's K1 launches, then a resume from the
+   complete checkpoint (no K1 launch, the same Gram) and one with the last
+   half of the largest bucket block's units cleared (fewer launches than
+   the full run, the same Gram); ``bpla_kernel -n --checkpoint``: phase 7's
+   Gram bit for bit; (d) ``--trace-dir`` on 20 + 20 sequences: the trace
+   holds device events of K1's cluster kernel, the Gram equals the
+   untraced run's; (e) the stem train and predict flows' walls with the
+   featurize stage apart (``StageTimer``), on the native and on the Python
+   scan, beside phase 4's walls; (f) the unnormalised ``bpla_optimizer
+   --fold 2`` on phase 16's 20 + 20 sequences (native SMO), its wall.
 
 Before each path every launch count is set to 0, and it is read just after;
-phases 16-18 must leave every count at 0.
+phases 16-18 must leave every count at 0; phase 19 must launch K1 and K2.
 The line before the last lists every kernel with its launches on the main
 path, its error against its plain version, its time, its plain version's
 time and its bound: the larger of the bytes it must move over 3.35 TB/s and
@@ -145,6 +166,7 @@ the one-warp kernel apart, K3 and K4 their largest rel error.  The last line is 
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -212,13 +234,16 @@ K6_OPS = 23  # injection 6, window scans 6, re-anchor and combine 10, max 1
 OPT_LEN = (48, 60)  # the optimizer corpus: f32 K and dK stay finite up to ~70 nt
 OPT_RTOL = 1e-4  # K and each dK/dp, --device cpu against cuda
 OPT_CLI_N = 20  # sequences a class of the bpla_optimizer CLI run
-OPT_CLI_RTOL = 1e-3  # its printed parameters and C, cpu against cuda
+OPT_CLI_RTOL = 1e-3  # its parameters, first step and last objective, cpu against cuda
 OVERFLOW_LEN = 80  # the flank kernel's overflow batch
 CLASSIC_N = 48  # points of the classic optimizers' LIBSVM file
 SMALL_N = 4  # sequences a class of the cpu-against-cuda runs
 # the string-family CLIs: (name, flags, cpu-against-cuda band of the Gram)
 STRING_CLIS = (("la_kernel_lite", [], 5e-7), ("la_kernel_lite", ["--use-bp"], 1e-4),
                ("string_kernel", [], 1e-6), ("simpal", [], 1e-4))
+TRACE_N = 20  # sequences a class of the --trace-dir run
+SMO_N = 2000  # points of the random PSD Gram of the SMO comparison
+SMO_DIM = 10  # their dimension (RBF kernel, gamma 1 / (2 SMO_DIM))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -839,6 +864,60 @@ def printed_params(out: str) -> np.ndarray:
     return np.array([float(v) for v in m.groups()])
 
 
+def optimizer_cli(argv: list) -> dict:
+    """Run bpla_optimizer's main in this process: its printed parameters,
+    the x of its first step (of step 0 when it stops there), its last
+    step's objective, its count of steps and its wall."""
+    import io
+    import re
+
+    from stem_kernel_torch.cli import bpla_optimizer
+
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        out = run_cli(bpla_optimizer.main, argv)
+    wall = time.perf_counter() - t0
+    print(err.getvalue(), end="", file=sys.stderr)
+    steps = re.findall(r"=== step (\d+): f=(\S+) x=\[([^\]]*)\]", err.getvalue())
+    check(len(steps) >= 1, f"bpla_optimizer {argv}: no step printed")
+    return {"params": printed_params(out),
+            "first": np.array(steps[min(1, len(steps) - 1)][2].split(), float),
+            "f": float(steps[-1][1]), "steps": len(steps), "s": wall}
+
+
+@contextlib.contextmanager
+def smo_solver(name: str):
+    """Run the port's SMO from alpha = 0 on ``name``: "native" (its default)
+    or "numpy" (the plain version)."""
+    from stem_kernel_torch import native
+    from stem_kernel_torch.svm import solver
+
+    def plain(K, y, p, C_p, C_n, eps, max_iter):
+        res = solver.smo_solve_numpy(K, y, p, C_p, C_n, eps=eps, max_iter=max_iter)
+        return res.alpha, res.rho, res.obj, res.n_iter
+
+    saved = native.smo_solve_native
+    if name == "numpy":
+        native.smo_solve_native = plain
+    try:
+        yield
+    finally:
+        native.smo_solve_native = saved
+
+
+def optimizer_corpus() -> tuple[list[str], list[str], list[str]]:
+    """Phase 16's corpus: the stem path's generator, seed 0, each sequence
+    cut to 48-60 nt (family, shuffles), and four 80-nt overflow sequences."""
+    from stem_kernel_torch.utils.shuffle import dinucleotide_shuffle
+
+    rng = np.random.default_rng(SEED)
+    fam = make_family(rng, N_TRAIN + N_TEST, SEQ_LEN)
+    shuf = [dinucleotide_shuffle(s, rng) for s in fam]
+    overflow_seqs = trim(rng, fam[:2] + shuf[:2], OVERFLOW_LEN, OVERFLOW_LEN)
+    return trim(rng, fam, *OPT_LEN), trim(rng, shuf, *OPT_LEN), overflow_seqs
+
+
 def slice4_phases(dev, smi: str, reset_counts, counts) -> None:
     """Phases 16-18: the optimizers and the string-family CLIs.  No K1-K6
     kernel lies on these paths: every launch count must stay 0."""
@@ -860,19 +939,13 @@ def slice4_phases(dev, smi: str, reset_counts, counts) -> None:
     from stem_kernel_torch.models.simpal import pal_features, simpal_kernel_fn
     from stem_kernel_torch.models.string_kernel import StringKernel, plain_string_kernel
     from stem_kernel_torch.opt.optimizer import optimize_kernel_params
-    from stem_kernel_torch.utils.shuffle import dinucleotide_shuffle
 
     def no_kernels(phase: str) -> None:
         got = counts()
         print(f"{phase}: K1-K6 launch counts {got}")
         check(not any(got.values()), f"{phase} launched a K1-K6 kernel: {got}")
 
-    # the stem path's generator, seed 0, each sequence cut to 48-60 nt
-    rng = np.random.default_rng(SEED)
-    fam = make_family(rng, N_TRAIN + N_TEST, SEQ_LEN)
-    shuf = [dinucleotide_shuffle(s, rng) for s in fam]
-    overflow_seqs = trim(rng, fam[:2] + shuf[:2], OVERFLOW_LEN, OVERFLOW_LEN)
-    fam, shuf = trim(rng, fam, *OPT_LEN), trim(rng, shuf, *OPT_LEN)
+    fam, shuf, overflow_seqs = optimizer_corpus()
     pos, tpos = fam[:N_TRAIN], fam[N_TRAIN:]
     neg, tneg = shuf[:N_TRAIN], shuf[N_TRAIN:]
     train = pos + neg
@@ -981,20 +1054,41 @@ def slice4_phases(dev, smi: str, reset_counts, counts) -> None:
 
     # the bpla_optimizer CLI end to end, --device cuda against --device cpu;
     # normalized: unnormalized K of 48-60 nt reaches 1e29, where the SMO's
-    # stopping test (1e-3 on gradients of that size) lies below f64 resolution
+    # stopping test (1e-3 on gradients of that size) lies below f64 resolution.
+    # Each device runs it on the native SMO (the CLI's solver) and on the
+    # numpy SMO (its plain version).  The printed parameters and C, cuda
+    # against cpu, are held to 1e-3 on the numpy SMO, as before the native
+    # solver came.  On the native SMO the first step and the last objective
+    # are held to the same band and the parameters printed beside the two
+    # solvers' gap on each device's own K: the line searches ride the SMO's
+    # free-SV ties, so rounding of 1e-15 between the solvers or of 5e-7 between
+    # the devices' K can part the runs towards other points of a flat objective
     cli_args = ["-n", "--fold", "2", "+1", p("cpos.fa"), "-1", p("cneg.fa")]
     cli = {}
+    for solver in ("native", "numpy"):
+        for d in ("cuda", "cpu"):
+            reset_counts()
+            with smo_solver(solver):
+                cli[solver, d] = optimizer_cli(["--device", d, *cli_args])
+            print(f"bpla_optimizer --device {d} -n --fold 2, {2 * OPT_CLI_N} sequences, "
+                  f"{solver} SMO: {cli[solver, d]['s']:.2f} s, {cli[solver, d]['steps']} steps, "
+                  f"(C, alpha, beta, gap, ext) {cli[solver, d]['params']}")
+            no_kernels(f"bpla_optimizer --device {d}, {solver} SMO")
     for d in ("cuda", "cpu"):
-        reset_counts()
-        t0 = time.perf_counter()
-        cli[d] = printed_params(run_cli(bpla_optimizer.main, ["--device", d, *cli_args]))
-        print(f"bpla_optimizer --device {d} -n --fold 2, {2 * OPT_CLI_N} sequences: "
-              f"{time.perf_counter() - t0:.2f} s")
-        no_kernels(f"bpla_optimizer --device {d}")
-    cli_err = max_rel(cli["cuda"], cli["cpu"])
-    print(f"bpla_optimizer cuda vs cpu: (C, alpha, beta, gap, ext) {cli['cuda']} vs "
-          f"{cli['cpu']}, max rel {cli_err:.3e} (limit {OPT_CLI_RTOL})")
-    check(cli_err <= OPT_CLI_RTOL, "bpla_optimizer: cuda and cpu parameters disagree")
+        print(f"bpla_optimizer --device {d}: native against numpy SMO on the same K, last "
+              f"parameters max rel {max_rel(cli['native', d]['params'], cli['numpy', d]['params']):.3e}")
+    first_err = max_rel(cli["native", "cuda"]["first"], cli["native", "cpu"]["first"])
+    f_err = (abs(cli["native", "cuda"]["f"] - cli["native", "cpu"]["f"])
+             / abs(cli["native", "cpu"]["f"]))
+    native_err = max_rel(cli["native", "cuda"]["params"], cli["native", "cpu"]["params"])
+    numpy_err = max_rel(cli["numpy", "cuda"]["params"], cli["numpy", "cpu"]["params"])
+    print(f"bpla_optimizer cuda vs cpu, native SMO: first step max rel {first_err:.3e}, last "
+          f"objective rel {f_err:.3e} (limit {OPT_CLI_RTOL}), last parameters max rel "
+          f"{native_err:.3e}; numpy SMO: last parameters max rel {numpy_err:.3e} "
+          f"(limit {OPT_CLI_RTOL})")
+    check(first_err <= OPT_CLI_RTOL, "bpla_optimizer: cuda and cpu first steps disagree")
+    check(f_err <= OPT_CLI_RTOL, "bpla_optimizer: cuda and cpu last objectives disagree")
+    check(numpy_err <= OPT_CLI_RTOL, "bpla_optimizer: cuda and cpu parameters disagree")
 
     # overflow: a self pair of 80 nt overflows f32, three cross pairs do not
     reset_counts()
@@ -1102,6 +1196,250 @@ def slice4_phases(dev, smi: str, reset_counts, counts) -> None:
               f"Gram max abs diff {diff:.3e} (band {band})")
         check(diff <= band, f"{label}: cuda and cpu Grams disagree")
     print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
+    tmp_dir.cleanup()
+
+
+def cpu_model() -> str:
+    """The host CPU's model name, or its vendor, family and model numbers
+    where /proc/cpuinfo names none; with the count of CPUs."""
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            info.setdefault(key.strip(), value.strip())
+    name = info.get("model name", "unknown")
+    if name in ("", "unknown"):
+        name = (f"unnamed CPU (vendor {info.get('vendor_id', '?')}, family "
+                f"{info.get('cpu family', '?')} model {info.get('model', '?')})")
+    return f"{name}, {os.cpu_count()} CPUs"
+
+
+def slice5_phase(dev, smi: str, reset_counts, counts, corpus: tuple, stem: dict,
+                 g_bpla: np.ndarray) -> None:
+    """Phase 19: the native host code and the Gram-engine options on the
+    stem path at full width.  ``corpus``: phase 4's (pos, neg, tpos, tneg);
+    ``stem``: phase 4's Gram and walls; ``g_bpla``: phase 7's Gram."""
+    from stem_kernel_torch.cli import bpla_kernel, stem_kernel_lite, svm_tools
+    from stem_kernel_torch.fold.bpmatrix import fold_sequences
+    from stem_kernel_torch.gram.io import read_precomputed
+    from stem_kernel_torch.models import dag
+    from stem_kernel_torch.models.composite import StemLiteConfig
+    from stem_kernel_torch.ops.stem_fixed_point import stem_fixed_point
+    from stem_kernel_torch.svm import solver
+    from stem_kernel_torch.utils.tracing import TRACE_FILE, StageTimer
+
+    t_phase = time.perf_counter()
+    host = f"{cpu_model()} (the host of {smi})"
+    pos, neg, tpos, tneg = corpus
+    train = pos + neg
+    n = len(train)
+    cfg = StemLiteConfig()
+    tmp_dir = tempfile.TemporaryDirectory()
+    p = lambda f: os.path.join(tmp_dir.name, f)  # noqa: E731
+    for name, seqs in (("pos", pos), ("neg", neg), ("tpos", tpos), ("tneg", tneg),
+                       ("rpos", pos[:TRACE_N]), ("rneg", neg[:TRACE_N])):
+        write_fasta(p(f"{name}.fa"), seqs, name)
+    train_args = ["+1", p("pos.fa"), "-1", p("neg.fa")]
+
+    def k1() -> int:
+        return stem_fixed_point.launches + stem_fixed_point.launches_wide
+
+    walls = {}
+
+    def stem_train(out: str, *flags) -> np.ndarray:
+        t0 = time.perf_counter()
+        run_cli(stem_kernel_lite.main, ["--device", "cuda", *flags, "-n", p(out), *train_args])
+        walls[out] = time.perf_counter() - t0
+        return read_precomputed(p(out))[1]
+
+    # (a) the DAG scan: native against the Python scan on phase 4's BPPs
+    bpps = fold_sequences(train, cfg.bp_opts, device=dev)
+    nat_s = py_s = 0.0
+    nodes = 0
+    for bpp in bpps:
+        t0 = time.perf_counter()
+        got = dag._dag_topology(bpp, len(bpp), cfg.th)
+        t1 = time.perf_counter()
+        want = dag._dag_topology_python(bpp, len(bpp), cfg.th)
+        py_s += time.perf_counter() - t1
+        nat_s += t1 - t0
+        nodes += len(got[0])
+        check(all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(got, want)),
+              "the native DAG scan differs from the Python scan")
+    print(f"DAG scan on {host}: native {1e3 * nat_s / n:.3f} ms a sequence, Python "
+          f"{1e3 * py_s / n:.3f} ms ({n} sequences of {SEQ_LEN} nt, th {cfg.th}, {nodes} "
+          f"nodes); identical arrays")
+
+    # (b) the SMO: native against numpy, tests/test_native.py's tolerances
+    y = np.array([1.0] * N_TRAIN + [-1.0] * N_TRAIN)
+    r = np.random.default_rng(SEED + 19)
+    y2 = np.where(np.arange(SMO_N) < SMO_N // 2, 1.0, -1.0)
+    x2 = r.normal(size=(SMO_N, SMO_DIM)) + 0.35 * y2[:, None]
+    sq = (x2 * x2).sum(1)
+    k2 = np.exp(-(sq[:, None] + sq[None, :] - 2.0 * x2 @ x2.T) / (2 * SMO_DIM))
+    k2 = k2.astype(np.float32)
+    for label, kk, yy in ((f"phase 4's normalised stem Gram (N={n}, f64)", stem["g"], y),
+                          (f"random PSD RBF Gram (N={SMO_N}, f32)", k2, y2)):
+        t0 = time.perf_counter()
+        nat = solver.smo_solve(kk, yy, -np.ones(len(yy)), 1.0, 1.0)
+        t1 = time.perf_counter()
+        plain = solver.smo_solve_numpy(kk, yy, -np.ones(len(yy)), 1.0, 1.0)
+        t2 = time.perf_counter()
+        obj = abs(nat.obj - plain.obj) / abs(plain.obj)
+        alpha = float(np.abs(nat.alpha - plain.alpha).max())
+        rho = abs(nat.rho - plain.rho)
+        print(f"SMO on {host}, {label}: native {nat.n_iter} iterations {t1 - t0:.4f} s, numpy "
+              f"{plain.n_iter} iterations {t2 - t1:.4f} s; obj rel {obj:.2e} (limit 1e-8), "
+              f"alpha {alpha:.2e}, rho {rho:.2e} (limit 1e-5)")
+        check(obj <= 1e-8 and alpha <= 1e-5 and rho <= 1e-5,
+              f"SMO on {label}: native and numpy disagree")
+    a0 = np.full(n, 0.5)
+    t0 = time.perf_counter()
+    nat, r_nat = solver.smo_solve_nu(stem["g"], y, np.zeros(n), 1.0, 1.0, a0)
+    t1 = time.perf_counter()
+    plain, r_plain = solver.smo_solve_nu_numpy(stem["g"], y, np.zeros(n), 1.0, 1.0, a0)
+    t2 = time.perf_counter()
+    errs = (abs(nat.obj - plain.obj) / max(1.0, abs(plain.obj)), abs(nat.rho - plain.rho),
+            abs(r_nat - r_plain), float(np.abs(nat.alpha - plain.alpha).max()))
+    print(f"nu-SMO on {host}, the stem Gram, nu 0.5: native {nat.n_iter} iterations "
+          f"{t1 - t0:.4f} s, numpy {plain.n_iter} iterations {t2 - t1:.4f} s; obj, rho, r, "
+          f"alpha {', '.join(f'{e:.2e}' for e in errs)} (limits 1e-6, 1e-4, 1e-4, 1e-4)")
+    check(errs[0] <= 1e-6 and max(errs[1:]) <= 1e-4, "nu-SMO: native and numpy disagree")
+
+    # (c) --checkpoint: a full run, a complete resume, a partial one
+    ck = p("ck")
+    reset_counts()
+    g_ck = stem_train("ck.dat", "--checkpoint", ck)
+    full, ck_counts = k1(), counts()
+    print(f"stem_kernel_lite -n --checkpoint: {walls['ck.dat']:.2f} s (phase 4's train flow "
+          f"{stem['train_s']:.2f} s), K1 launches {full} (phase 4's train: {stem['launches']}); "
+          f"all counts {ck_counts}; Gram equal to phase 4's bit for bit: "
+          f"{np.array_equal(g_ck, stem['g'])}")
+    check(full == stem["launches"], "the checkpointed run launched K1 another number of times")
+    check(np.array_equal(g_ck, stem["g"]), "the checkpointed Gram differs from phase 4's")
+    reset_counts()
+    g_ck = stem_train("ck2.dat", "--checkpoint", ck)
+    print(f"resume from a complete checkpoint: {walls['ck2.dat']:.2f} s, K1 launches {k1()}; "
+          f"same Gram: {np.array_equal(g_ck, stem['g'])}")
+    check(k1() == 0, "a complete checkpoint recomputed units")
+    check(np.array_equal(g_ck, stem["g"]), "the resumed Gram differs")
+    metas = {}
+    for f in os.listdir(ck):
+        if f.endswith(".meta.json"):
+            with open(os.path.join(ck, f)) as fh:
+                metas[f.removesuffix(".meta.json")] = json.load(fh)
+    largest = max(metas, key=lambda b: metas[b]["n_pairs"])
+    meta = metas[largest]
+    done = np.lib.format.open_memmap(os.path.join(ck, f"{largest}.done.npy"), mode="r+")
+    cleared = len(done) - len(done) // 2
+    done[len(done) // 2:] = False
+    done.flush()
+    del done
+    reset_counts()
+    g_ck = stem_train("ck3.dat", "--checkpoint", ck)
+    print(f"resume with the last {cleared} of the units of {largest} "
+          f"({meta['n_pairs']} pairs, units of {meta['batch_size']}) cleared: "
+          f"{walls['ck3.dat']:.2f} s, K1 launches {k1()} (the full run: {full}); same Gram: "
+          f"{np.array_equal(g_ck, stem['g'])}")
+    check(0 < k1() < full, "the partial resume did not recompute only the cleared units")
+    check(np.array_equal(g_ck, stem["g"]), "the partially resumed Gram differs")
+    reset_counts()
+    run_cli(bpla_kernel.main, ["--device", "cuda", "-n", "--checkpoint", p("bck"),
+                               p("bpla.dat"), *train_args])
+    g_bck = read_precomputed(p("bpla.dat"))[1]
+    bpla_counts = counts()
+    print(f"bpla_kernel -n --checkpoint: counts {bpla_counts}; Gram equal to phase 7's bit for "
+          f"bit: {np.array_equal(g_bck, g_bpla)}")
+    check(bpla_counts["K2"] > 0, "bpla_kernel --checkpoint never launched K2")
+    check(np.array_equal(g_bck, g_bpla), "the checkpointed BPLA Gram differs from phase 7's")
+
+    # (d) --trace-dir on 20 + 20 sequences
+    small = ["+1", p("rpos.fa"), "-1", p("rneg.fa")]
+    t0 = time.perf_counter()
+    run_cli(stem_kernel_lite.main, ["--device", "cuda", "-n", p("untraced.dat"), *small])
+    untraced_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    run_cli(stem_kernel_lite.main, ["--device", "cuda", "-n", "--trace-dir", p("trace"),
+                                    p("traced.dat"), *small])
+    traced_s = time.perf_counter() - t0
+    launches = stem_fixed_point.launches
+    with open(os.path.join(p("trace"), TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    cluster = [e for e in events if e.get("cat") == "kernel"
+               and "fixed_point_cluster" in e.get("name", "")]
+    same = np.array_equal(read_precomputed(p("traced.dat"))[1],
+                          read_precomputed(p("untraced.dat"))[1])
+    print(f"stem_kernel_lite -n --trace-dir, {2 * TRACE_N} sequences: {traced_s:.2f} s "
+          f"(untraced {untraced_s:.2f} s), "
+          f"{len(events)} trace events, {len(cluster)} device events of K1's cluster kernel "
+          f"({cluster[0]['name'] if cluster else 'none'}), {launches} cluster launches counted; "
+          f"Gram equal to the untraced run's: {same}")
+    check(launches > 0 and len(cluster) > 0, "the trace holds no K1 cluster kernel events")
+    check(same, "the traced Gram differs from the untraced one")
+
+    # (e) the flows' walls with the featurize stage apart, on the native and
+    # on the Python scan (its plain version), in one run
+    native_scan = dag._dag_topology
+    featurizers = {name: getattr(stem_kernel_lite, name)
+                   for name in ("featurize_stem_examples", "featurize_stem_bucketed")}
+    timer = StageTimer()
+    flow = ["train"]
+
+    def timed(fn):
+        def wrapper(*args, **kwargs):
+            with timer.stage(f"{flow[0]} featurize"):
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+            return out
+        return wrapper
+
+    flows = {}
+    try:
+        for name, fn in featurizers.items():
+            setattr(stem_kernel_lite, name, timed(fn))
+        for scan, topology in (("python", dag._dag_topology_python), ("native", native_scan)):
+            dag._dag_topology = topology
+            reset_counts()
+            flow[0] = f"{scan} train"
+            with timer.stage(f"{scan} train flow"):
+                g_e = stem_train(f"{scan}.dat")
+            check(np.array_equal(g_e, stem["g"]),
+                  f"the {scan} scan's Gram differs from phase 4's")
+            svm_tools.train_main([p(f"{scan}.dat"), p(f"{scan}.model")])
+            flow[0] = f"{scan} predict"
+            with timer.stage(f"{scan} predict flow"):
+                run_cli(stem_kernel_lite.main, [
+                    "--device", "cuda", "-n", p(f"{scan}_test.dat"), "--model",
+                    p(f"{scan}.model"), "--predict", p(f"{scan}_pred.txt"), *train_args,
+                    "--test", "+1", p("tpos.fa"), "-1", p("tneg.fa")])
+            check(k1() > 0, f"the {scan} scan's flows never launched K1")
+            flows[scan] = {k: v for k, v in timer.totals.items() if k.startswith(scan)}
+    finally:
+        dag._dag_topology = native_scan
+        for name, fn in featurizers.items():
+            setattr(stem_kernel_lite, name, fn)
+    for scan, t in flows.items():
+        print(f"stem flows on {host}, {scan} DAG scan: train {t[f'{scan} train flow']:.2f} s "
+              f"(featurize {t[f'{scan} train featurize']:.2f} s), predict "
+              f"{t[f'{scan} predict flow']:.2f} s (featurize "
+              f"{t[f'{scan} predict featurize']:.2f} s)")
+    print(f"phase 4 (native scan, the first flows of the run): train {stem['train_s']:.2f} s, "
+          f"predict {stem['predict_s']:.2f} s")
+
+    # (f) the unnormalised bpla_optimizer --fold 2 on phase 16's 20 + 20
+    # sequences, which the numpy SMO did not finish in 1,200 s
+    fam, shuf, _ = optimizer_corpus()
+    write_fasta(p("opos.fa"), fam[:OPT_CLI_N], "opos")
+    write_fasta(p("oneg.fa"), shuf[:OPT_CLI_N], "oneg")
+    reset_counts()
+    run = optimizer_cli(["--device", "cuda", "--fold", "2", "+1", p("opos.fa"),
+                         "-1", p("oneg.fa")])
+    print(f"bpla_optimizer --fold 2 (unnormalised, native SMO), {2 * OPT_CLI_N} sequences on "
+          f"{host}: {run['s']:.2f} s, {run['steps']} steps, last objective {run['f']}, "
+          f"(C, alpha, beta, gap, ext) {run['params']}; counts {counts()}")
+    check(bool(np.isfinite(run["params"]).all()), "the unnormalised optimizer ended non-finite")
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
     tmp_dir.cleanup()
 
 
@@ -1296,6 +1634,7 @@ def main() -> int:
     stem_counts = counts()
     launches, wide = stem_counts["K1"], stem_fixed_point.launches_wide
     labels, g = read_precomputed(p("km.dat"))
+    g_stem = g
 
     # small-input reference: the same flow on the plain versions (CPU)
     for d in ("cuda", "cpu"):
@@ -1919,6 +2258,9 @@ def main() -> int:
           f"{FULL_TEST / full_predict_s:.2f} rows/s ({full_predict_s:.2f} s)")
 
     slice4_phases(dev, smi, reset_counts, counts)
+    slice5_phase(dev, smi, reset_counts, counts, (pos, neg, tpos, tneg),
+                 {"g": g_stem, "launches": train_launches + train_wide, "train_s": train_s,
+                  "predict_s": predict_s}, g_bpla)
 
     meta = {
         "K1": ("stem_fixed_point", "stem_kernel_torch/csrc/stem_fixed_point.cu",
@@ -1951,4 +2293,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(k6_values(sys.argv[2]) if sys.argv[1:2] == ["--k6-values"] else main())
+    if sys.argv[1:2] == ["--k6-values"]:
+        sys.exit(k6_values(sys.argv[2]))
+    sys.exit(main())

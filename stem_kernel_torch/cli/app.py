@@ -12,9 +12,12 @@ LoaderFactory>, stem_kernel/common/framework.h:100-416):
   diagonals, write matrix rows / norm file, and run SVM prediction per model
   (framework.h:167-306).
 
-Everything runs on one device, named explicitly.  Multi-device sharding,
-checkpointing, profiler traces and pf_scale side files are not ported yet:
-their options are rejected, never ignored.
+Everything runs on one device, named explicitly.  ``--checkpoint`` resumes
+the train Gram unit by unit (gram.checkpoint), ``--trace-dir`` writes a
+torch.profiler Chrome trace of the whole flow (utils.tracing), and
+``--use-pf-scale-file`` reads 'label file pf_file' triples.  Multi-device
+sharding (``--devices``, ``--single-device``) is not ported yet: its
+options are rejected, never ignored.
 """
 
 from __future__ import annotations
@@ -34,13 +37,10 @@ from ..io.parsers import expand_globs, iter_alignments
 from ..io.profile import Alignment
 from ..svm.model import load_model, load_sv_index
 from ..svm.train import svm_predict_probability, svm_predict_values
+from ..utils.tracing import device_profile
 
 # options of the JAX CLI that need later slices of the port
-NOT_YET_PORTED = {
-    "devices": "--devices", "single_device": "--single-device",
-    "checkpoint": "--checkpoint", "trace_dir": "--trace-dir",
-    "use_pf_scale_file": "--use-pf-scale-file",
-}
+NOT_YET_PORTED = {"devices": "--devices", "single_device": "--single-device"}
 
 
 @dataclass
@@ -58,7 +58,12 @@ class AppOptions:
     predict_only: bool = False  # --no-matrix
     model_files: list[str] = field(default_factory=list)
     predict_outputs: list[str] = field(default_factory=list)
+    trace_dir: str = ""
+    use_pf_scale_file: bool = False
+    pf_files: list[str] = field(default_factory=list)
+    pf_ts_files: list[str] = field(default_factory=list)
     stream_chunk: int = 64  # test examples featurized per predict chunk
+    checkpoint: str = ""  # train-Gram checkpoint/resume directory
 
 
 def add_common_options(p: argparse.ArgumentParser) -> None:
@@ -82,9 +87,19 @@ def add_common_options(p: argparse.ArgumentParser) -> None:
                    help="predict mode: featurize this many test examples at a time")
     p.add_argument("--devices", type=int, default=None, help="not yet ported")
     p.add_argument("--single-device", action="store_true", help="not yet ported")
-    p.add_argument("--checkpoint", default="", help="not yet ported")
-    p.add_argument("--trace-dir", default="", help="not yet ported")
-    p.add_argument("--use-pf-scale-file", action="store_true", help="not yet ported")
+    p.add_argument("--checkpoint", default="",
+                   help="directory for unit-granular train-Gram checkpointing: a "
+                        "restarted train run resumes, skipping completed units "
+                        "(the reference restarts multi-hour Gram runs from zero)")
+    p.add_argument("--trace-dir", default="",
+                   help="write a torch.profiler trace of the run to "
+                        "DIR/trace.json (Chrome trace format; view it in "
+                        "chrome://tracing or Perfetto)")
+    p.add_argument("--use-pf-scale-file", action="store_true",
+                   help="positional args come as 'label file pf_scale_file' "
+                        "triples (framework.cpp:26-30); the scaled fold "
+                        "engine self-normalizes, so the values only validate "
+                        "example counts")
     # the positional grammar "output [label file]... [--test ...]" is collected
     # from unrecognized args (labels like -1 confuse argparse), mirroring the
     # reference's collect_unrecognized pattern (stem_kernel_lite/main.cpp:152-163)
@@ -125,7 +140,10 @@ def parse_positional(ns: argparse.Namespace) -> AppOptions:
         predict_only=ns.no_matrix,
         model_files=list(ns.model),
         predict_outputs=list(ns.predict),
+        trace_dir=ns.trace_dir,
+        use_pf_scale_file=ns.use_pf_scale_file,
         stream_chunk=ns.stream_chunk,
+        checkpoint=ns.checkpoint,
     )
     if "--test" in extra:
         opts.predict_mode = True
@@ -135,18 +153,44 @@ def parse_positional(ns: argparse.Namespace) -> AppOptions:
     else:
         pairs = extra[1:]
         ts = []
-    opts.labels = pairs[0::2]
-    opts.files = pairs[1::2]
-    opts.ts_labels = ts[0::2]
-    opts.ts_files = ts[1::2]
+    stride = 3 if opts.use_pf_scale_file else 2
+    opts.labels = pairs[0::stride]
+    opts.files = pairs[1::stride]
+    opts.ts_labels = ts[0::stride]
+    opts.ts_files = ts[1::stride]
+    if opts.use_pf_scale_file:
+        # 'label file pf_scale_file' triples (framework.cpp:96-139;
+        # DataLoader pf_is_, stem_kernel_lite/data.cpp:510-538)
+        opts.pf_files = pairs[2::stride]
+        opts.pf_ts_files = ts[2::stride]
     return opts
 
 
-def load_labeled(labels: list[str], files: list[str], verbose: bool = True):
-    """Examples per (label, glob) pair, with per-file timing on stderr."""
+def load_pf_scales(pf_files: list[str], counts: list[int]) -> list[float]:
+    """Read per-example pf_scale side files (one float per example,
+    stem_kernel_lite/data.cpp:510-538).  The fold engine rescales per length
+    itself, so the values are only validated against the example counts and
+    returned for diagnostics."""
+    scales: list[float] = []
+    for path, count in zip(pf_files, counts):
+        with open(path) as f:
+            vals = [float(t) for t in f.read().split()]
+        if len(vals) < count:
+            raise ValueError(f"{path}: {len(vals)} pf_scale values for {count} examples")
+        scales.extend(vals[:count])
+    return scales
+
+
+def load_labeled(labels: list[str], files: list[str], verbose: bool = True,
+                 counts_out: list[int] | None = None):
+    """Examples per (label, glob) pair, with per-file timing on stderr.
+
+    ``counts_out``: appended with the example count of each (label, pattern)
+    argument, to validate pf_scale side files."""
     alignments: list[Alignment] = []
     out_labels: list[str] = []
     for label, pattern in zip(labels, files):
+        n_before = len(alignments)
         for path in expand_globs([pattern]):
             t0 = time.time()
             n0 = len(alignments)
@@ -156,6 +200,8 @@ def load_labeled(labels: list[str], files: list[str], verbose: bool = True):
             if verbose:
                 print(f"loading {path} as label {label} ({len(alignments)-n0} ex, "
                       f"{time.time()-t0:.1f}s) done.", file=sys.stderr)
+        if counts_out is not None:
+            counts_out.append(len(alignments) - n_before)
     return alignments, out_labels
 
 
@@ -173,30 +219,49 @@ def run_app(
     log_kernel: bool = False,
     featurize_buckets=None,
     merge_aux=None,
+    slab_batches: int = 16,
 ) -> None:
-    """Execute the train or predict flow on ``device``.
+    """Execute the train or predict flow on ``device``, inside a profiler
+    trace when ``opts.trace_dir`` is set.
 
     ``log_kernel``: the kernel_fn returns log K; normalization happens in log
     space.  ``featurize_buckets``: alignments -> list of (indices, feats, aux)
     shape-buckets; when given, the train Gram is assembled block-wise at
     per-bucket pad shapes (gram.bucketed).  ``merge_aux``: combine train and
     test-chunk featurizer aux (``max`` for iteration bounds) when streaming
-    predict chunks; None reuses the train aux.
+    predict chunks; None reuses the train aux.  ``slab_batches``: batches in
+    a checkpoint unit of the flat engine's train Gram (the JAX CLIs' slab:
+    64 for the fast kernels, 16 otherwise).
     """
+    with device_profile(opts.trace_dir, device):
+        _run_app_inner(opts, featurize, make_kernel_fn, device=device,
+                       batch_size=batch_size, log_kernel=log_kernel,
+                       featurize_buckets=featurize_buckets, merge_aux=merge_aux,
+                       slab_batches=slab_batches)
+
+
+def _run_app_inner(opts, featurize, make_kernel_fn, *, device, batch_size, log_kernel,
+                   featurize_buckets, merge_aux, slab_batches) -> None:
     t_start = time.time()
-    train_alns, train_labels = load_labeled(opts.labels, opts.files)
+    counts: list[int] | None = [] if opts.use_pf_scale_file else None
+    train_alns, train_labels = load_labeled(opts.labels, opts.files, counts_out=counts)
+    if opts.use_pf_scale_file:
+        load_pf_scales(opts.pf_files, counts)
     if not opts.predict_mode:
         if featurize_buckets is not None:
             from ..gram.bucketed import bucketed_gram
 
             g = bucketed_gram(featurize_buckets(train_alns), make_kernel_fn,
                               device=device, normalize=opts.normalize,
-                              batch_size=batch_size, log_values=log_kernel)
+                              batch_size=batch_size, log_values=log_kernel,
+                              checkpoint_path=opts.checkpoint or None)
         else:
             feats, aux = featurize(train_alns)
             eng = PairKernelEngine(make_kernel_fn(aux), feats, device=device,
-                                   batch_size=batch_size, log_values=log_kernel)
-            g = eng.gram(normalize=opts.normalize)
+                                   batch_size=batch_size, slab_batches=slab_batches,
+                                   log_values=log_kernel)
+            g = eng.gram(normalize=opts.normalize,
+                         checkpoint_path=opts.checkpoint or None)
         write_precomputed(opts.output, train_labels, g)
         print(f"elapsed time: {time.time()-t_start:.1f}s", file=sys.stderr)
         return
@@ -207,7 +272,11 @@ def run_app(
     if opts.model_files:
         sv_index = load_sv_index(opts.model_files)
         models = [load_model(m) for m in opts.model_files]
-    test_alns, test_labels = load_labeled(opts.ts_labels, opts.ts_files)
+    ts_counts: list[int] | None = [] if opts.use_pf_scale_file else None
+    test_alns, test_labels = load_labeled(opts.ts_labels, opts.ts_files,
+                                          counts_out=ts_counts)
+    if opts.use_pf_scale_file:
+        load_pf_scales(opts.pf_ts_files, ts_counts)
 
     train_feats, aux_tr = featurize(train_alns)
     eng = PairKernelEngine(make_kernel_fn(aux_tr), train_feats, device=device,

@@ -86,7 +86,7 @@ def main(argv=None) -> int:
     # in log space (exact log-space normalization)
     use_log = not ns.SW
     run_app(opts, featurize, lambda _aux: kernel.log_value if use_log else kernel,
-            device=device, log_kernel=use_log)
+            device=device, log_kernel=use_log, slab_batches=64)
     return 0
 
 

@@ -64,7 +64,7 @@ def main(argv=None) -> int:
         return la_exp_auto(s, x["length"], y["length"], ns.beta, ns.gap, ns.ext)
 
     run_app(opts, lambda alns: (aa_features(alns), None), lambda _aux: kernel_fn,
-            device=device)
+            device=device, slab_batches=64)
     return 0
 
 

@@ -83,7 +83,7 @@ def main(argv=None) -> int:
         return kern(x["profile"], x["length"], y["profile"], y["length"],
                     wx=x["weight"], wy=y["weight"])
 
-    run_app(opts, featurize, lambda _aux: kernel_fn, device=device)
+    run_app(opts, featurize, lambda _aux: kernel_fn, device=device, slab_batches=64)
     return 0
 
 

@@ -62,7 +62,7 @@ def main(argv=None) -> int:
 
     kernel_fn = simpal_kernel_fn(ns.seed_length, ns.tolerance, ns.max_distance,
                                  device=device)
-    run_app(opts, featurize, lambda _aux: kernel_fn, device=device)
+    run_app(opts, featurize, lambda _aux: kernel_fn, device=device, slab_batches=64)
     return 0
 
 

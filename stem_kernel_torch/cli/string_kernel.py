@@ -56,7 +56,7 @@ def main(argv=None) -> int:
     def kernel_fn(x, y):
         return plain_string_kernel(x["codes"], x["length"], y["codes"], y["length"], gap)
 
-    run_app(opts, featurize, lambda _aux: kernel_fn, device=device)
+    run_app(opts, featurize, lambda _aux: kernel_fn, device=device, slab_batches=64)
     return 0
 
 

@@ -91,12 +91,19 @@ class _Profiler:
 
 
 def _dag_topology(avg_bpp: np.ndarray, L: int, th: float):
-    """Node spans + CSR edges (the Python scan; the native C++ scan is not
-    ported yet).
+    """Node spans + CSR edges by the native C++ scan (``native/dagscan.cpp``).
 
     The candidate-pair scan and DFS emission of DAGBuilder
     (data.cpp:163-258): children precede parents in the output order.
+    ``_dag_topology_python`` is its plain version.
     """
+    from .. import native
+
+    return native.dag_scan_native(np.asarray(avg_bpp, np.float64), th)
+
+
+def _dag_topology_python(avg_bpp: np.ndarray, L: int, th: float):
+    """The plain version of ``_dag_topology``: the same scan in Python."""
     bp_children: dict[tuple[int, int], list[tuple[int, int]]] = {}
     head: list[list[tuple[int, int]]] = [[] for _ in range(L)]
     ch: dict[tuple[int, int], list[tuple[int, int]]] = {}

@@ -10,6 +10,11 @@ select_working_set, calculate_rho).  The convex QP's decision values are
 unique, so this NumPy-vectorized implementation reproduces the reference's
 decision values within solver tolerance without per-element C++ loops.
 
+``smo_solve`` (from alpha = 0) and ``smo_solve_nu`` run the native C++
+solver (``native/smo.cpp``), as the JAX package does when its library is
+built; the warm-started ``smo_solve`` runs the NumPy path.
+``smo_solve_numpy`` and ``smo_solve_nu_numpy`` are the plain versions.
+
 Shrinking is left out: the dense precomputed Gram is already in memory, and
 the solve is a small share of a pipeline whose Gram build dominates.
 """
@@ -19,6 +24,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+
+from .. import native
 
 TAU = 1e-12
 
@@ -31,6 +38,10 @@ class SolverResult:
     n_iter: int
     upper_bound_p: float
     upper_bound_n: float
+
+
+def _max_iter(n: int, max_iter: int | None) -> int:
+    return max(10_000_000, 100 * n) if max_iter is None else max_iter
 
 
 def smo_solve(
@@ -50,11 +61,30 @@ def smo_solve(
     sum(alpha) = nu*l; SMO preserves y^T alpha, so the start defines the
     equality constraint's value).
 
-    This is the NumPy path; the native C++ solver is not ported yet.
+    From alpha = 0 the native solver runs; a warm start takes the NumPy path.
     """
+    if alpha0 is not None:
+        return smo_solve_numpy(K, y, p, C_p, C_n, eps=eps, max_iter=max_iter, alpha0=alpha0)
+    alpha, rho, obj, it = native.smo_solve_native(K, y, p, C_p, C_n, eps,
+                                                  _max_iter(len(y), max_iter))
+    return SolverResult(alpha=alpha, rho=rho, obj=obj, n_iter=it,
+                        upper_bound_p=C_p, upper_bound_n=C_n)
+
+
+def smo_solve_numpy(
+    K: np.ndarray,
+    y: np.ndarray,
+    p: np.ndarray,
+    C_p: float,
+    C_n: float,
+    *,
+    eps: float = 1e-3,
+    max_iter: int | None = None,
+    alpha0: np.ndarray | None = None,
+) -> SolverResult:
+    """The NumPy path of ``smo_solve`` (its plain version)."""
     n = len(y)
-    if max_iter is None:
-        max_iter = max(10_000_000, 100 * n)
+    max_iter = _max_iter(n, max_iter)
     y = np.asarray(y, dtype=np.float64)
     if alpha0 is None:
         alpha = np.zeros(n)
@@ -175,11 +205,28 @@ def smo_solve_nu(
 
     Returns (result, r) where result.rho = (r1 - r2)/2 and r = (r1 + r2)/2
     (calculate_rho, solver.cpp:676-718); for nu-SVC 1/r is the equivalent
-    C-SVC cost, for nu-SVR -r is the attained epsilon.
+    C-SVC cost, for nu-SVR -r is the attained epsilon.  Runs the native
+    solver.
     """
-    n = len(y)
-    if max_iter is None:
-        max_iter = max(10_000_000, 100 * n)
+    alpha, rho, r, obj, it = native.smo_solve_nu_native(K, y, p, C_p, C_n, alpha0, eps,
+                                                        _max_iter(len(y), max_iter))
+    return (SolverResult(alpha=alpha, rho=rho, obj=obj, n_iter=it,
+                         upper_bound_p=C_p, upper_bound_n=C_n), r)
+
+
+def smo_solve_nu_numpy(
+    K: np.ndarray,
+    y: np.ndarray,
+    p: np.ndarray,
+    C_p: float,
+    C_n: float,
+    alpha0: np.ndarray,
+    *,
+    eps: float = 1e-3,
+    max_iter: int | None = None,
+) -> tuple[SolverResult, float]:
+    """The NumPy path of ``smo_solve_nu`` (its plain version)."""
+    max_iter = _max_iter(len(y), max_iter)
     y = np.asarray(y, dtype=np.float64)
     C = np.where(y > 0, C_p, C_n)
     alpha = np.asarray(alpha0, dtype=np.float64).copy()

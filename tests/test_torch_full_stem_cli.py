@@ -111,7 +111,7 @@ def test_device_cuda_without_gpu_raises(tmp_path, monkeypatch):
                     "+1", p["pos"], "-1", p["neg"]])
 
 
-@pytest.mark.parametrize("flag", [["--devices", "2"], ["--checkpoint", "ck"]])
+@pytest.mark.parametrize("flag", [["--devices", "2"], ["--single-device"]])
 def test_unported_options_are_rejected(tmp_path, flag, capsys):
     p = _files(tmp_path, TRAIN)
     with pytest.raises(SystemExit) as exc:

@@ -118,7 +118,7 @@ def test_device_cuda_without_gpu_raises(tmp_path, monkeypatch, cli):
         main(["--device", "cuda", "-n", str(tmp_path / "k.dat"), "+1", p["pos"], "-1", p["neg"]])
 
 
-@pytest.mark.parametrize("cli,flag", [("bpla_kernel", ["--checkpoint", "ck"]),
+@pytest.mark.parametrize("cli,flag", [("bpla_kernel", ["--single-device"]),
                                       ("bpla_kernel", ["--use-alifold"]),
                                       ("la_kernel", ["--devices", "2"])])
 def test_unported_options_are_rejected(tmp_path, cli, flag, capsys):

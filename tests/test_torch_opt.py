@@ -2,9 +2,11 @@
 numpy optimizer copies and the optimizer CLIs against the JAX package.
 
 Every input is made from a seed with numpy and fed to both packages on the
-CPU.  Where the JAX package would run its native C++ SMO, the comparisons
-of the optimizer copies switch it off, so that both sides run the same
-numpy solver (the port has no native solver yet).
+CPU.  Both packages solve their SVMs on their native C++ SMO, built from
+the same source with the same flags, so the optimizer copies must agree
+bit for bit.  One case of each function that solves SVMs runs both
+packages on their numpy SMO instead (the ``numpy_smo`` fixture): the plain
+version's check.
 """
 
 import re
@@ -38,15 +40,22 @@ from stem_kernel_torch.opt import gradient as t_grad
 from stem_kernel_torch.opt import kernel_entropy as t_ent
 from stem_kernel_torch.opt import lbfgsb as t_lbfgsb
 from stem_kernel_torch.opt import optimizer as t_opt
+from stem_kernel_torch.svm import solver as t_solver
 
 PARAMS = np.array([4.5, 0.11, -8.0, -0.75], np.float32)  # alpha, beta, gap, ext
 BASE = "gggcgcaagcuugaaagcgccc"  # tests/test_opt.py's bpla_optimizer case
 
 
 @pytest.fixture
-def jax_numpy_smo(monkeypatch):
-    """The JAX package's SMO on its numpy path, as the port's."""
+def numpy_smo(monkeypatch):
+    """Both packages' SMO from alpha = 0 on its numpy path."""
     monkeypatch.setattr("stem_kernel_tpu.native.smo_solve_native", lambda *a, **k: None)
+
+    def plain(K, y, p, C_p, C_n, eps, max_iter):
+        res = t_solver.smo_solve_numpy(K, y, p, C_p, C_n, eps=eps, max_iter=max_iter)
+        return res.alpha, res.rho, res.obj, res.n_iter
+
+    monkeypatch.setattr("stem_kernel_torch.native.smo_solve_native", plain)
 
 
 def _parts(seed, b, n, m, lens=None):
@@ -245,9 +254,7 @@ def _optimize(opt, kern, lbfgsb):
     return np.concatenate([params, [C, f]])
 
 
-@pytest.mark.parametrize("case", ["lbfgsb", "auc_delta", "conjugate_gradient", "auc_fold",
-                                  "classic_kernels", "kernel_entropy", "optimize"])
-def test_opt_copies_match_jax(case, jax_numpy_smo):
+def _run_opt_case(case):
     run = {
         "lbfgsb": lambda g, k, e, o, lb: _lbfgsb_path(lb),
         "auc_delta": lambda g, k, e, o, lb: _auc_delta(g),
@@ -260,6 +267,17 @@ def test_opt_copies_match_jax(case, jax_numpy_smo):
     want = run(j_grad, j_kern, j_ent, j_opt, j_lbfgsb)
     got = run(t_grad, t_kern, t_ent, t_opt, t_lbfgsb)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["lbfgsb", "auc_delta", "conjugate_gradient", "auc_fold",
+                                  "classic_kernels", "kernel_entropy", "optimize"])
+def test_opt_copies_match_jax(case):
+    _run_opt_case(case)
+
+
+@pytest.mark.parametrize("case", ["auc_fold", "optimize"])  # the cases that solve SVMs
+def test_opt_copies_match_jax_on_numpy_smo(case, numpy_smo):
+    _run_opt_case(case)
 
 
 # ---- K and dK over a corpus, the objective, and the CLIs ----
@@ -299,9 +317,21 @@ def test_bpla_matrix_with_grads_matches_jax(corpus_feats, normalize):
 # package's own native and numpy solvers, on the same K, give hypergradients
 # 5.5e-3 of max|g| apart, and K values 2.7e-7 apart move the port's as far.
 # So g is held to 1e-2 there and to 1e-4 under normalization.
-@pytest.mark.parametrize("normalize,g_band", [(False, 1e-2), (True, 1e-4)],
-                         ids=["plain", "normalize"])
-def test_objective_at_x0_matches_jax(corpus_feats, normalize, g_band, jax_numpy_smo):
+OBJECTIVE_BANDS = pytest.mark.parametrize("normalize,g_band", [(False, 1e-2), (True, 1e-4)],
+                                          ids=["plain", "normalize"])
+
+
+@OBJECTIVE_BANDS
+def test_objective_at_x0_matches_jax(corpus_feats, normalize, g_band):
+    _check_objective(corpus_feats, normalize, g_band)
+
+
+@OBJECTIVE_BANDS
+def test_objective_at_x0_matches_jax_on_numpy_smo(corpus_feats, normalize, g_band, numpy_smo):
+    _check_objective(corpus_feats, normalize, g_band)
+
+
+def _check_objective(corpus_feats, normalize, g_band):
     y = np.array([1.0] * 4 + [-1.0] * 4)
     x0 = np.concatenate([[1.0], PARAMS.astype(np.float64)])
     st = jb.DEFAULT_BPLA_SCORE_TABLE
@@ -339,7 +369,8 @@ def _cli_run(main, argv, capsys):
 # run's objective is flat at AUC 1 and its line searches ride the SMO's near
 # ties (above): its last parameters move by 40% between the JAX CLI with its
 # native and with its numpy SMO, and as much under K noise of 1e-7, so
-# there the first step and the last objective are held to 1e-3.
+# there the first step and the last objective are held to 1e-3.  Both CLIs
+# solve on their native SMO.
 @pytest.mark.parametrize("flags", [["-n"], []], ids=["normalize", "plain"])
 def test_bpla_optimizer_cli_matches_jax_cli(tmp_path, capsys, flags):
     pf, nf = _write_corpus(tmp_path)
@@ -354,7 +385,16 @@ def test_bpla_optimizer_cli_matches_jax_cli(tmp_path, capsys, flags):
 
 
 @pytest.mark.parametrize("kind", ["rbf", "poly", "sigmoid"])
-def test_classic_optimizer_clis_match_jax(tmp_path, capsys, kind, jax_numpy_smo):
+def test_classic_optimizer_clis_match_jax(tmp_path, capsys, kind):
+    _check_classic_cli(tmp_path, capsys, kind)
+
+
+@pytest.mark.parametrize("kind", ["rbf", "poly", "sigmoid"])
+def test_classic_optimizer_clis_match_jax_on_numpy_smo(tmp_path, capsys, kind, numpy_smo):
+    _check_classic_cli(tmp_path, capsys, kind)
+
+
+def _check_classic_cli(tmp_path, capsys, kind):
     X, y = _auc_problem(n=24)
     data = tmp_path / "train.svm"
     data.write_text("".join(

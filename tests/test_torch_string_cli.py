@@ -170,7 +170,7 @@ def test_device_cuda_without_gpu_raises(tmp_path, monkeypatch, cli):
 
 
 @pytest.mark.parametrize("cli,flag", [("la_kernel_lite", ["--use-alifold"]),
-                                      ("string_kernel", ["--checkpoint", "ck"]),
+                                      ("string_kernel", ["--single-device"]),
                                       ("simpal", ["--devices", "2"])])
 def test_unported_options_are_rejected(tmp_path, cli, flag, capsys):
     main = {"la_kernel_lite": t_lite.main, "string_kernel": t_string.main,
