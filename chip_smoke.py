@@ -111,7 +111,7 @@ Phases (the first failure exits non-zero; nothing is caught):
    (pairs/s) and the device busy share of one call traced for device
    events; the same function on 8 sequences
    with ``device=cpu``, K within 1e-4 rel and each dK/dp within 1e-4 of its
-   largest; one ``optimize_kernel_params`` run (ncv=5, max_steps=3, the
+   largest; one ``optimize_kernel_params`` run (ncv=5, max_steps=1, the
    CLI's bounds) with its wall time and K+dK evaluations; the
    ``bpla_optimizer -n --fold 2`` CLI on 20 + 20 sequences with ``--device
    cuda`` and ``--device cpu``, each on the native and on the numpy SMO:
@@ -143,10 +143,33 @@ Phases (the first failure exits non-zero; nothing is caught):
    untraced run's; (e) the stem train and predict flows' walls with the
    featurize stage apart (``StageTimer``), on the native and on the Python
    scan, beside phase 4's walls; (f) the unnormalised ``bpla_optimizer
-   --fold 2`` on phase 16's 20 + 20 sequences (native SMO), its wall.
+   --fold 2`` on phase 16's 20 + 20 sequences (native SMO), its wall;
+20. the rest of the fold layer: (a) ``bpla_kernel -n --use-alifold`` train
+   on 100 + 100 CLUSTAL alignments of 8 rows and 110-130 columns (phase
+   4's hairpin family with compensatory and single stem mutations, about
+   5% gaps; negatives per-row shuffles), ``svm_tools train``, predict on
+   20 + 20; K2's count must rise; 4 + 4 with ``--device cpu`` against
+   ``cuda`` (Gram 1.3e-3, BPP 5e-4); batched alifold against
+   one-at-a-time on the card within 1e-6 (bit for bit counted); the
+   ``ali_*`` goldens within 2e-5; the alifold fold's alignments/s and the
+   alifold BPLA Gram's pairs/s; (b) ``stem_kernel_lite -n
+   --use-contrafold default`` on phase 4's corpus (both K1 routes),
+   ``bpla_kernel -n --use-contrafold`` with ``default`` and with a file of
+   the default weights (K2; the two matrices byte-equal), the ``contra_*``
+   goldens; (c) the exact fold in f64 on the card against the ten
+   ``fold_bpp`` goldens (1e-10) and the card's scaled f32 fold against it
+   (BPP 5e-4, logZ 2e-5 rel), ms a sequence on the card and the CPU; (d)
+   ``sfold_bpp(seq, 200, seed=0)`` against the ``sfold_*`` goldens bit for
+   bit (a draw that f64 rounding moved is printed with its probabilities
+   and the case held to the 0.08 Monte-Carlo band); (e) 5 Adam steps of
+   ``train_contrafold`` on 4 hairpins of 20-30 nt, card against CPU
+   within 1e-9 rel; (f) ``bpla_optimizer -n --use-alifold --fold 2`` on
+   20 + 20 alignments of 48-60 columns under phase 16's bands and solver
+   split.
 
 Before each path every launch count is set to 0, and it is read just after;
-phases 16-18 must leave every count at 0; phase 19 must launch K1 and K2.
+phases 16-18 must leave every count at 0; phase 19 must launch K1 and K2;
+phase 20's alifold and CONTRAfold paths K2, and K1 on both routes.
 The line before the last lists every kernel with its launches on the main
 path, its error against its plain version, its time, its plain version's
 time and its bound: the larger of the bytes it must move over 3.35 TB/s and
@@ -235,6 +258,7 @@ OPT_LEN = (48, 60)  # the optimizer corpus: f32 K and dK stay finite up to ~70 n
 OPT_RTOL = 1e-4  # K and each dK/dp, --device cpu against cuda
 OPT_CLI_N = 20  # sequences a class of the bpla_optimizer CLI run
 OPT_CLI_RTOL = 1e-3  # its parameters, first step and last objective, cpu against cuda
+OPT_RUN_STEPS = 1  # L-BFGS-B steps of phase 16's optimize_kernel_params run
 OVERFLOW_LEN = 80  # the flank kernel's overflow batch
 CLASSIC_N = 48  # points of the classic optimizers' LIBSVM file
 SMALL_N = 4  # sequences a class of the cpu-against-cuda runs
@@ -244,6 +268,20 @@ STRING_CLIS = (("la_kernel_lite", [], 5e-7), ("la_kernel_lite", ["--use-bp"], 1e
 TRACE_N = 20  # sequences a class of the --trace-dir run
 SMO_N = 2000  # points of the random PSD Gram of the SMO comparison
 SMO_DIM = 10  # their dimension (RBF kernel, gamma 1 / (2 SMO_DIM))
+# phase 20: the rest of the fold layer
+ALI_ROWS = 8  # rows an alignment, as an Rfam seed alignment
+ALI_COLS = (110, 130)  # columns an alignment of the alifold corpus
+ALI_GAP = 0.05  # share of gap cells
+ALI_BATCH_ATOL = 1e-6  # batched alifold against one-at-a-time, both on the card
+ALI_BATCH_N = 8  # alignments of that comparison
+GOLDEN_ATOL = 2e-5  # the method goldens' band (tests/test_fold_goldens.py)
+ORACLE_TOL = 1e-10  # the exact fold against tests/golden/fold_bpp.npz, rtol and atol
+LOGZ_RTOL = 2e-5  # the scaled f32 fold against the exact fold
+EXACT_CPU_N = 1  # golden sequences the exact fold is timed on with --device cpu
+SFOLD_SAMPLES = 200
+SFOLD_BAND = 0.08  # tests/test_fold.py's Monte-Carlo band, for a draw f64 rounding moved
+TRAIN_EXAMPLES, TRAIN_LEN, TRAIN_STEPS = 4, (20, 30), 5  # the CONTRAfold trainer's run
+TRAIN_RTOL = 1e-9  # its loss history, cuda against cpu (f64)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1039,12 +1077,14 @@ def slice4_phases(dev, smi: str, reset_counts, counts) -> None:
     t0 = time.perf_counter()
     opt_params, opt_c, opt_f = optimize_kernel_params(
         labels, kernel_fn, params, 1.0, lower=bpla_optimizer.LOWER,
-        upper=bpla_optimizer.UPPER, bound_types=bpla_optimizer.BOUND_TYPES, ncv=5, max_steps=3)
+        upper=bpla_optimizer.UPPER, bound_types=bpla_optimizer.BOUND_TYPES, ncv=5,
+        max_steps=OPT_RUN_STEPS)
     opt_s = time.perf_counter() - t0
     check(bool(np.isfinite(opt_params).all() and np.isfinite(opt_f)),
           "the optimizer run ended on a non-finite point")
     host_s = opt_s - sum(kernel_s)
-    print(f"optimizer run on {smi} (N={n}, ncv=5, max_steps=3, normalize): {opt_s:.3f} s, "
+    print(f"optimizer run on {smi} (N={n}, ncv=5, max_steps={OPT_RUN_STEPS}, normalize): "
+          f"{opt_s:.3f} s, "
           f"{len(kernel_s)} K+dK evaluations ({sum(kernel_s):.3f} s; "
           f"{sum(kernel_s) / len(kernel_s):.3f} s each), SVM, CG and the rest on the host "
           f"{host_s:.3f} s ({host_s / len(kernel_s):.3f} s an evaluation); an objective "
@@ -1212,6 +1252,356 @@ def cpu_model() -> str:
         name = (f"unnamed CPU (vendor {info.get('vendor_id', '?')}, family "
                 f"{info.get('cpu family', '?')} model {info.get('model', '?')})")
     return f"{name}, {os.cpu_count()} CPUs"
+
+
+def make_alignments(rng: np.random.Generator, cores: list[str], lo: int, hi: int) -> list:
+    """One alignment a hairpin core (a stem of a third of its length, a loop,
+    the stem's reverse complement, as ``make_family`` builds them): ALI_ROWS
+    rows with compensatory (10%) and single (5%) mutations on the stem and
+    10% on the loop, the loop resized so the alignment has lo..hi columns,
+    and about ALI_GAP gap cells."""
+    comp = {"a": "u", "c": "g", "g": "c", "u": "a"}
+    out = []
+    for core in cores:
+        k = len(core) // 3
+        cols = int(rng.integers(lo, hi + 1))
+        loop = list(core[k:len(core) - k])
+        loop = (loop + list(rng.choice(list("acgu"), max(0, cols - 2 * k - len(loop)))))
+        loop = loop[:cols - 2 * k]
+        rows = []
+        for _ in range(ALI_ROWS):
+            s, rc = list(core[:k]), list(core[len(core) - k:])
+            for i in range(k):
+                u = rng.random()
+                if u < 0.1:  # compensatory: both bases of the pair
+                    b = str(rng.choice(list("acgu")))
+                    s[i], rc[k - 1 - i] = b, comp[b]
+                elif u < 0.15:
+                    s[i] = str(rng.choice(list("acgu")))
+            lp = [str(rng.choice(list("acgu"))) if rng.random() < 0.1 else c for c in loop]
+            rows.append("".join("-" if rng.random() < ALI_GAP else c for c in s + lp + rc))
+        out.append(rows)
+    return out
+
+
+def shuffle_alignments(rng: np.random.Generator, alns: list) -> list:
+    """Negatives: each row's residues permuted, its gaps kept in place."""
+    out = []
+    for rows in alns:
+        shuffled = []
+        for r in rows:
+            idx = [i for i, c in enumerate(r) if c != "-"]
+            row = list(r)
+            for i, c in zip(idx, rng.permutation([r[i] for i in idx])):
+                row[i] = str(c)
+            shuffled.append("".join(row))
+        out.append(shuffled)
+    return out
+
+
+def write_clustal(path: str, alns: list, prefix: str) -> str:
+    with open(path, "w") as f:
+        for a, rows in enumerate(alns):
+            f.write("CLUSTAL W\n\n" + "".join(f"{prefix}{a}_{r} {row}\n"
+                                              for r, row in enumerate(rows)) + "\n")
+    return path
+
+
+def trainer_examples(rng: np.random.Generator) -> list[tuple[str, str]]:
+    """TRAIN_EXAMPLES (sequence, dot-bracket) hairpins of TRAIN_LEN nt: a
+    4-7 nt loop, a stem of up to 8 bp (5 where the length allows), an
+    unpaired tail."""
+    comp = {"a": "u", "c": "g", "g": "c", "u": "a"}
+    out = []
+    for _ in range(TRAIN_EXAMPLES):
+        n = int(rng.integers(TRAIN_LEN[0], TRAIN_LEN[1] + 1))
+        loop = int(rng.integers(4, 8))
+        k = min(int(rng.integers(5, 9)), (n - loop) // 2)
+        stem = "".join(rng.choice(list("acgu"), k))
+        seq = (stem + "".join(rng.choice(list("acgu"), loop))
+               + "".join(comp[c] for c in reversed(stem))
+               + "".join(rng.choice(list("acgu"), n - 2 * k - loop)))
+        out.append((seq, "(" * k + "." * loop + ")" * k + "." * (n - 2 * k - loop)))
+    return out
+
+
+def sfold_draws(seq: str, device) -> tuple[np.ndarray, list]:
+    """sfold_bpp(seq, SFOLD_SAMPLES, seed=0) on ``device``, and every draw's
+    (choice, its probability)."""
+    from stem_kernel_torch.fold import sampling
+
+    draws = []
+    plain = sampling._softmax_choice
+
+    def recorded(rng, logw):
+        c = plain(rng, logw)
+        p = np.exp(logw - logw.max())
+        draws.append((c, float(p[c] / p.sum())))
+        return c
+
+    sampling._softmax_choice = recorded
+    try:
+        bpp = sampling.sfold_bpp(seq, SFOLD_SAMPLES, seed=0, device=device)
+    finally:
+        sampling._softmax_choice = plain
+    return bpp, draws
+
+
+def slice6_phase(dev, smi: str, reset_counts, counts, corpus: tuple) -> None:
+    """Phase 20: the rest of the fold layer at full width.  ``corpus``:
+    phase 4's (pos, neg, tpos, tneg)."""
+    from stem_kernel_torch.cli import bpla_kernel, stem_kernel_lite, svm_tools
+    from stem_kernel_torch.fold.bpmatrix import (
+        BPMatrixOptions, alifold_bpp, bpp_for_alignments,
+    )
+    from stem_kernel_torch.fold.contrafold import (
+        contrafold_bpp, default_weights, save_contrafold_params, train_contrafold,
+    )
+    from stem_kernel_torch.fold.mccaskill import mccaskill_bpp
+    from stem_kernel_torch.fold.mccaskill_scaled import mccaskill_bpp_batch_scaled
+    from stem_kernel_torch.gram.engine import PairKernelEngine
+    from stem_kernel_torch.gram.io import read_precomputed
+    from stem_kernel_torch.io.alphabet import encode
+    from stem_kernel_torch.io.profile import Alignment
+    from stem_kernel_torch.models.bpla import BPLAKernel
+    from stem_kernel_torch.models.featurize import bpla_features
+    from stem_kernel_torch.ops.stem_fixed_point import stem_fixed_point
+
+    t_phase = time.perf_counter()
+    pos, neg, tpos, tneg = corpus
+    golden_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden")
+    method = np.load(os.path.join(golden_dir, "method_bpp.npz"))
+    folds = np.load(os.path.join(golden_dir, "fold_bpp.npz"))
+    names = lambda data, pre: sorted({k.split("__")[0] for k in data.files  # noqa: E731
+                                      if k.startswith(pre)})
+    text = lambda data, key: data[key].tobytes().decode()  # noqa: E731
+    tmp_dir = tempfile.TemporaryDirectory()
+    p = lambda f: os.path.join(tmp_dir.name, f)  # noqa: E731
+    rng = np.random.default_rng(SEED + 20)
+    ali = make_alignments(rng, pos + tpos, *ALI_COLS)
+    ali_neg = shuffle_alignments(rng, ali)
+    sets = {"apos": ali[:N_TRAIN], "aneg": ali_neg[:N_TRAIN], "atpos": ali[N_TRAIN:],
+            "atneg": ali_neg[N_TRAIN:], "aspos": ali[:SMALL_N], "asneg": ali_neg[:SMALL_N]}
+    for name, alns in sets.items():
+        write_clustal(p(f"{name}.aln"), alns, name)
+    fasta = {"pos": write_fasta(p("pos.fa"), pos, "p"), "neg": write_fasta(p("neg.fa"), neg, "n")}
+    alns = [Alignment(rows=r) for r in ali[:N_TRAIN] + ali_neg[:N_TRAIN]]
+    n = len(alns)
+    n_pairs = n * (n + 1) // 2
+    train_labels = ["+1"] * N_TRAIN + ["-1"] * N_TRAIN
+    ali_opts = BPMatrixOptions(alifold=True)
+
+    # ---- (a) alifold: bpla_kernel -n --use-alifold train, svm train, predict ----
+    reset_counts()
+    t0 = time.perf_counter()
+    run_cli(bpla_kernel.main, ["--device", "cuda", "--use-alifold", "-n", p("ali.dat"),
+                               "+1", p("apos.aln"), "-1", p("aneg.aln")])
+    ali_train_s = time.perf_counter() - t0
+    k2_train = counts()["K2"]
+    svm_tools.train_main([p("ali.dat"), p("ali.model")])
+    run_cli(bpla_kernel.main, ["--device", "cuda", "--use-alifold", "-n", p("ali_test.dat"),
+                               "--model", p("ali.model"), "--predict", p("ali_pred.txt"),
+                               "+1", p("apos.aln"), "-1", p("aneg.aln"),
+                               "--test", "+1", p("atpos.aln"), "-1", p("atneg.aln")])
+    ali_counts = counts()
+    labels, g_ali = read_precomputed(p("ali.dat"))
+    gram_checks("bpla_kernel --use-alifold", g_ali, n, labels, train_labels)
+    auc = predictions(p("ali_pred.txt"), 2 * N_TEST, "bpla_kernel --use-alifold")
+    cols = [a.length for a in alns]
+    print(f"alifold path: {n} alignments of {ALI_ROWS} rows, {min(cols)}-{max(cols)} columns, "
+          f"train Gram {g_ali.shape} in {ali_train_s:.2f} s, K2 launches {k2_train} (train) "
+          f"{ali_counts['K2']} (train + predict); all counts {ali_counts}; predict: "
+          f"{2 * N_TEST} rows, AUC {auc:.4f}")
+    check(k2_train > 0 and ali_counts["K2"] > k2_train,
+          "the alifold BPLA path did not launch K2 in train and predict")
+    for d in ("cuda", "cpu"):
+        bpla_kernel.main(["--device", d, "--use-alifold", "-n", p(f"sali_{d}.dat"),
+                          "+1", p("aspos.aln"), "-1", p("asneg.aln")])
+    small_diff = float(np.abs(read_precomputed(p("sali_cuda.dat"))[1]
+                              - read_precomputed(p("sali_cpu.dat"))[1]).max())
+    small = [Alignment(rows=r) for r in ali[:SMALL_N] + ali_neg[:SMALL_N]]
+    bpp_diff = max(float(np.abs(a - b).max()) for a, b in zip(
+        bpp_for_alignments(small, ali_opts, device=dev),
+        bpp_for_alignments(small, ali_opts, device="cpu")))
+    print(f"alifold, {2 * SMALL_N} alignments, cuda vs cpu: Gram max abs diff {small_diff:.3e} "
+          f"(band {BPLA_BAND}), BPP max abs diff {bpp_diff:.3e} (band {BPP_BAND})")
+    check(small_diff <= BPLA_BAND, "alifold: cuda and cpu Grams disagree")
+    check(bpp_diff <= BPP_BAND, "alifold: cuda and cpu folds disagree")
+    batched = bpp_for_alignments(alns[:ALI_BATCH_N], ali_opts, device=dev)
+    alone = [alifold_bpp(a, device=dev) for a in alns[:ALI_BATCH_N]]
+    batch_diff = max(float(np.abs(a - b).max()) for a, b in zip(batched, alone))
+    equal = sum(np.array_equal(a, b) for a, b in zip(batched, alone))
+    print(f"alifold on the card, {ALI_BATCH_N} alignments batched against one at a time: max abs "
+          f"diff {batch_diff:.3e} (limit {ALI_BATCH_ATOL}); bit for bit: {equal} of {ALI_BATCH_N}")
+    check(batch_diff <= ALI_BATCH_ATOL, "alifold: batched and one-at-a-time folds disagree")
+    gold = []
+    for nm in names(method, "ali_"):
+        got = alifold_bpp(Alignment(rows=text(method, f"{nm}__rows").split("\n")), device=dev)
+        gold.append(float(np.abs(got - method[f"{nm}__bpp"]).max()))
+    print(f"alifold ali_* goldens on the card: max abs diff {', '.join(f'{e:.3e}' for e in gold)} "
+          f"(limit {GOLDEN_ATOL})")
+    check(max(gold) <= GOLDEN_ATOL, "alifold: an ali_* golden disagrees")
+    bpp_for_alignments(small, ali_opts, device=dev)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bpps = bpp_for_alignments(alns, ali_opts, device=dev)
+    torch.cuda.synchronize()
+    fold_s = time.perf_counter() - t0
+    feats = bpla_features(alns, bpps)
+    kernel = BPLAKernel().to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    PairKernelEngine(kernel.log_value, feats, device=dev, batch_size=LA_BATCH,
+                     log_values=True).gram(normalize=True)
+    torch.cuda.synchronize()
+    gram_s = time.perf_counter() - t0
+    print(f"times on {smi}: alifold fold {n / fold_s:.1f} alignments/s ({fold_s:.2f} s for {n}), "
+          f"alifold BPLA Gram {n_pairs / gram_s:.1f} pairs/s ({gram_s:.2f} s, batch {LA_BATCH})")
+
+    # ---- (b) CONTRAfold: stem_kernel_lite and bpla_kernel --use-contrafold ----
+    reset_counts()
+    t0 = time.perf_counter()
+    run_cli(stem_kernel_lite.main, ["--device", "cuda", "--use-contrafold", "default", "-n",
+                                    p("cf_stem.dat"), "+1", fasta["pos"], "-1", fasta["neg"]])
+    cf_stem_s = time.perf_counter() - t0
+    cf_counts, cf_wide = counts(), stem_fixed_point.launches_wide
+    labels, g = read_precomputed(p("cf_stem.dat"))
+    gram_checks("stem_kernel_lite --use-contrafold", g, n, labels, train_labels)
+    print(f"stem_kernel_lite --use-contrafold default, {n} sequences of {SEQ_LEN} nt: "
+          f"{cf_stem_s:.2f} s, K1 launches {cf_counts['K1']} cluster + {cf_wide} per-product; "
+          f"all counts {cf_counts}")
+    check(cf_counts["K1"] > 0 and cf_wide > 0,
+          "the CONTRAfold stem path did not launch both K1 routes")
+    w_path = p("w.params")
+    save_contrafold_params(w_path, default_weights())
+    cf_out = {}
+    for model in ("default", w_path):
+        reset_counts()
+        out = p(f"cf_bpla_{len(cf_out)}.dat")
+        run_cli(bpla_kernel.main, ["--device", "cuda", "--use-contrafold", model, "-n", out,
+                                   "+1", fasta["pos"], "-1", fasta["neg"]])
+        cf_out[model] = (open(out, "rb").read(), counts()["K2"])
+    labels, g = read_precomputed(p("cf_bpla_0.dat"))
+    gram_checks("bpla_kernel --use-contrafold", g, n, labels, train_labels)
+    same = cf_out["default"][0] == cf_out[w_path][0]
+    print(f"bpla_kernel --use-contrafold: K2 launches {cf_out['default'][1]} (default), "
+          f"{cf_out[w_path][1]} (weight file); the two matrices byte-equal: {same}")
+    check(cf_out["default"][1] > 0 and cf_out[w_path][1] > 0,
+          "the CONTRAfold BPLA path did not launch K2")
+    check(same, "--use-contrafold with a file of the default weights differs from 'default'")
+    gold = []
+    for nm in names(method, "contra_"):
+        got = contrafold_bpp([text(method, f"{nm}__seq")], device=dev)[0]
+        gold.append(float(np.abs(got - method[f"{nm}__bpp"]).max()))
+    print(f"contra_* goldens on the card: max abs diff {', '.join(f'{e:.3e}' for e in gold)} "
+          f"(limit {GOLDEN_ATOL})")
+    check(max(gold) <= GOLDEN_ATOL, "contrafold: a contra_* golden disagrees")
+
+    # ---- (c) the exact log-space fold, f64, on the card ----
+    fold_names = names(folds, "")
+    seqs = [text(folds, f"{nm}__seq") for nm in fold_names]
+    exact, ex_err, z_err = [], 0.0, 0.0
+    mccaskill_bpp(encode(seqs[0]), dtype=torch.float64, device=dev)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for nm, s in zip(fold_names, seqs):
+        bpp, z = mccaskill_bpp(encode(s), dtype=torch.float64, device=dev)
+        exact.append((bpp, z))
+        ex_err = max(ex_err, float(np.abs(bpp - folds[f"{nm}__bpp"]).max()))
+        z_err = max(z_err, abs(z - float(folds[f"{nm}__logz"])) / abs(float(folds[f"{nm}__logz"])))
+    exact_s = (time.perf_counter() - t0) / len(seqs)
+    t0 = time.perf_counter()
+    for s in seqs[:EXACT_CPU_N]:
+        mccaskill_bpp(encode(s), dtype=torch.float64, device="cpu")
+    exact_cpu_s = (time.perf_counter() - t0) / EXACT_CPU_N
+    nmax = max(len(s) for s in seqs)
+    codes = np.zeros((len(seqs), nmax), np.uint8)
+    for i, s in enumerate(seqs):
+        codes[i, :len(s)] = encode(s)
+    sc_bpp, sc_z = mccaskill_bpp_batch_scaled(codes, [len(s) for s in seqs], device=dev)
+    sc_bpp, sc_z = sc_bpp.cpu().numpy(), sc_z.cpu().numpy()
+    sc_err = max(float(np.abs(sc_bpp[i, :len(s), :len(s)] - exact[i][0]).max())
+                 for i, s in enumerate(seqs))
+    sc_z_err = max(abs(float(sc_z[i]) - exact[i][1]) / abs(exact[i][1]) for i in range(len(seqs)))
+    lens = [len(s) for s in seqs]
+    print(f"exact fold, f64 on the card, {len(seqs)} golden sequences of {min(lens)}-{max(lens)} "
+          f"nt: BPP max abs diff {ex_err:.3e}, logZ max rel {z_err:.3e} (limit {ORACLE_TOL}); "
+          f"the card's scaled f32 fold against it: BPP {sc_err:.3e} (band {BPP_BAND}), logZ "
+          f"{sc_z_err:.3e} (band {LOGZ_RTOL})")
+    check(ex_err <= ORACLE_TOL and z_err <= ORACLE_TOL, "the exact fold disagrees with its goldens")
+    check(sc_err <= BPP_BAND and sc_z_err <= LOGZ_RTOL,
+          "the scaled fold disagrees with the exact fold")
+    print(f"times on {smi}: exact fold (f64) {1e3 * exact_s:.1f} ms a sequence on the card, "
+          f"{1e3 * exact_cpu_s:.1f} ms on the host's CPU ({EXACT_CPU_N} sequences)")
+
+    # ---- (d) SFOLD sampling: the sfold_* goldens bit for bit ----
+    for nm in names(method, "sfold_"):
+        seq = text(method, f"{nm}__seq")
+        got, draws = sfold_draws(seq, dev)
+        want = method[f"{nm}__bpp"]
+        if np.array_equal(got, want):
+            print(f"sfold {nm} ({len(seq)} nt, {SFOLD_SAMPLES} samples, {len(draws)} draws) on "
+                  "the card: the golden's pair counts bit for bit")
+            continue
+        _, cpu_draws = sfold_draws(seq, "cpu")
+        k = next((i for i, (a, b) in enumerate(zip(draws, cpu_draws)) if a[0] != b[0]), None)
+        moved = ("no draw differs from the CPU's" if k is None else
+                 f"draw {k} chose {draws[k][0]} (p {draws[k][1]:.17g}) where the CPU chose "
+                 f"{cpu_draws[k][0]} (p {cpu_draws[k][1]:.17g})")
+        exact_bpp, _ = mccaskill_bpp(encode(seq), dtype=torch.float64, device=dev)
+        err = float(np.abs(got - exact_bpp).max())
+        print(f"sfold {nm} on the card differs from its golden: {moved}; against the exact "
+              f"BPP max abs {err:.3e} (band {SFOLD_BAND})")
+        check(err <= SFOLD_BAND, f"sfold {nm}: outside the Monte-Carlo band")
+
+    # ---- (e) the CONTRAfold trainer: card against CPU ----
+    examples = trainer_examples(np.random.default_rng(SEED + 21))
+    t0 = time.perf_counter()
+    _, card_hist = train_contrafold(examples, steps=TRAIN_STEPS, device=dev)
+    torch.cuda.synchronize()
+    card_step_s = (time.perf_counter() - t0) / TRAIN_STEPS
+    t0 = time.perf_counter()
+    _, cpu_hist = train_contrafold(examples, steps=TRAIN_STEPS, device="cpu")
+    cpu_step_s = (time.perf_counter() - t0) / TRAIN_STEPS
+    hist_err = max_rel(np.asarray(card_hist), np.asarray(cpu_hist))
+    print(f"train_contrafold, {TRAIN_EXAMPLES} examples of "
+          f"{'-'.join(str(len(s)) for s, _ in examples)} nt, {TRAIN_STEPS} Adam steps: loss "
+          f"{card_hist[0]:.6f} -> {card_hist[-1]:.6f}; cuda vs cpu max rel {hist_err:.3e} "
+          f"(limit {TRAIN_RTOL}); times on {smi}: a step {card_step_s:.3f} s on the card, "
+          f"{cpu_step_s:.3f} s on the host's CPU")
+    check(hist_err <= TRAIN_RTOL, "train_contrafold: cuda and cpu loss histories disagree")
+    check(card_hist[-1] < card_hist[0], "train_contrafold: the loss did not fall")
+
+    # ---- (f) bpla_optimizer -n --use-alifold --fold 2: cuda against cpu ----
+    opt_rng = np.random.default_rng(SEED + 22)
+    opt_ali = make_alignments(opt_rng, make_family(opt_rng, OPT_CLI_N, 54), *OPT_LEN)
+    write_clustal(p("opos.aln"), opt_ali, "opos")
+    write_clustal(p("oneg.aln"), shuffle_alignments(opt_rng, opt_ali), "oneg")
+    cli_args = ["-n", "--use-alifold", "--fold", "2", "+1", p("opos.aln"), "-1", p("oneg.aln")]
+    cli = {}
+    for solver in ("native", "numpy"):
+        for d in ("cuda", "cpu"):
+            reset_counts()
+            with smo_solver(solver):
+                cli[solver, d] = optimizer_cli(["--device", d, *cli_args])
+            print(f"bpla_optimizer --device {d} -n --use-alifold --fold 2, {2 * OPT_CLI_N} "
+                  f"alignments, {solver} SMO: {cli[solver, d]['s']:.2f} s, "
+                  f"{cli[solver, d]['steps']} steps, (C, alpha, beta, gap, ext) "
+                  f"{cli[solver, d]['params']}; counts {counts()}")
+    first_err = max_rel(cli["native", "cuda"]["first"], cli["native", "cpu"]["first"])
+    f_err = (abs(cli["native", "cuda"]["f"] - cli["native", "cpu"]["f"])
+             / abs(cli["native", "cpu"]["f"]))
+    numpy_err = max_rel(cli["numpy", "cuda"]["params"], cli["numpy", "cpu"]["params"])
+    native_err = max_rel(cli["native", "cuda"]["params"], cli["native", "cpu"]["params"])
+    print(f"bpla_optimizer --use-alifold cuda vs cpu, native SMO: first step max rel "
+          f"{first_err:.3e}, last objective rel {f_err:.3e} (limit {OPT_CLI_RTOL}), last "
+          f"parameters {native_err:.3e}; numpy SMO: last parameters max rel {numpy_err:.3e} "
+          f"(limit {OPT_CLI_RTOL})")
+    check(first_err <= OPT_CLI_RTOL, "bpla_optimizer --use-alifold: first steps disagree")
+    check(f_err <= OPT_CLI_RTOL, "bpla_optimizer --use-alifold: last objectives disagree")
+    check(numpy_err <= OPT_CLI_RTOL, "bpla_optimizer --use-alifold: parameters disagree")
+    print(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+    tmp_dir.cleanup()
 
 
 def slice5_phase(dev, smi: str, reset_counts, counts, corpus: tuple, stem: dict,
@@ -2261,6 +2651,7 @@ def main() -> int:
     slice5_phase(dev, smi, reset_counts, counts, (pos, neg, tpos, tneg),
                  {"g": g_stem, "launches": train_launches + train_wide, "train_s": train_s,
                   "predict_s": predict_s}, g_bpla)
+    slice6_phase(dev, smi, reset_counts, counts, (pos, neg, tpos, tneg))
 
     meta = {
         "K1": ("stem_fixed_point", "stem_kernel_torch/csrc/stem_fixed_point.cu",

@@ -31,7 +31,7 @@ from .app import (
     resolve_device,
     run_app,
 )
-from .stem_kernel_lite import FOLD_NOT_YET_PORTED, add_fold_options, fold_opts_from
+from .stem_kernel_lite import add_fold_options, fold_opts_from
 
 
 def read_score_table(path: str) -> np.ndarray:
@@ -70,7 +70,7 @@ def main(argv=None) -> int:
     full_f32()  # plain f32 products stay f32 on the card
     p = build_parser()
     ns = parse_args_with_positionals(p, argv)
-    reject_unported(p, ns, {**NOT_YET_PORTED, **FOLD_NOT_YET_PORTED})
+    reject_unported(p, ns, NOT_YET_PORTED)
     device = resolve_device(ns.device)
     opts = parse_positional(ns)
     score_table = read_score_table(ns.score) if ns.score else None

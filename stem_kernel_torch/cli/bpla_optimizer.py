@@ -27,7 +27,7 @@ import argparse
 import numpy as np
 import torch
 
-from ..fold.bpmatrix import bpp_for_alignments
+from ..fold.bpmatrix import BPMatrixOptions, bpp_for_alignments
 from ..gram.engine import to_device
 from ..models.bpla import (
     DEFAULT_BPLA_SCORE_TABLE, bpla_kernel_batch, bpla_score_parts, pair_mask,
@@ -36,7 +36,7 @@ from ..models.featurize import bpla_features
 from ..ops import full_f32
 from ..opt.lbfgsb import BOTH_BOUNDS, LOWER_BOUND, UPPER_BOUND
 from ..opt.optimizer import optimize_kernel_params
-from .app import load_labeled, parse_args_with_positionals, reject_unported, resolve_device
+from .app import load_labeled, parse_args_with_positionals, resolve_device
 from .bpla_kernel import read_score_table
 
 # bounds of (alpha, beta, gap, ext) (bpla_optimizer.cpp:419-426)
@@ -119,7 +119,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fold", type=int, default=5, help="CV folds")
     p.add_argument("--score", default="", help="score table file")
     p.add_argument("-n", "--normalize", action="store_true")
-    p.add_argument("--use-alifold", action="store_true", help="not yet ported")
+    p.add_argument("--use-alifold", action="store_true",
+                   help="use consensus folding for alignments")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="device of the kernel values and gradients: 'cuda' (fails "
                         "when no GPU is present) or 'cpu'")
@@ -129,7 +130,6 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     p = build_parser()
     ns = parse_args_with_positionals(p, argv)
-    reject_unported(p, ns, {"use_alifold": "--use-alifold"})
     device = resolve_device(ns.device)
     # positionals: label1 file1 [label2 file2 ...]  (no output file)
     rest = ns.args
@@ -138,7 +138,8 @@ def main(argv=None) -> int:
     y = np.array([1.0 if l in ("+1", "1") else -1.0 for l in labels])
 
     score_table = read_score_table(ns.score) if ns.score else DEFAULT_BPLA_SCORE_TABLE
-    feats = bpla_features(alns, bpp_for_alignments(alns, device=device))
+    feats = bpla_features(alns, bpp_for_alignments(
+        alns, BPMatrixOptions(alifold=ns.use_alifold), device=device))
 
     def kernel_fn(params):
         return bpla_matrix_with_grads(feats, score_table, params, device=device,

@@ -32,7 +32,7 @@ from .app import (
     resolve_device,
     run_app,
 )
-from .stem_kernel_lite import FOLD_NOT_YET_PORTED, add_fold_options, fold_opts_from
+from .stem_kernel_lite import add_fold_options, fold_opts_from
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -63,7 +63,7 @@ def main(argv=None) -> int:
     full_f32()
     p = build_parser()
     ns = parse_args_with_positionals(p, argv)
-    reject_unported(p, ns, {**NOT_YET_PORTED, **FOLD_NOT_YET_PORTED})
+    reject_unported(p, ns, NOT_YET_PORTED)
     device = resolve_device(ns.device)
     opts = parse_positional(ns)
     bp_opts = fold_opts_from(ns)

@@ -190,9 +190,9 @@ def _skew_span_to_ij(s: torch.Tensor, fill: float) -> torch.Tensor:
     return sk[:, :, :n]
 
 
-def _span_tables(codes, length, params):
+def _span_tables(codes, length, params, w_extra=None, pt_override=None):
     """All LUTs in span layout ([b, d, i] = lut[b, i, i+d]), as (log, exp)."""
-    luts = build_luts(codes, length, params)
+    luts = build_luts(codes, length, params, w_extra, pt_override)
     logs, exps = {}, {}
     for k, v in luts.items():
         s = _skew_ij_to_span(v.to(DT), NEG)
@@ -209,7 +209,7 @@ def _bmax(*ts: torch.Tensor) -> torch.Tensor:
 def _inside_scaled(codes, length, params, tabs):
     """Scaled inside pass over a batch.  Returns a dict of span-layout tables."""
     logs, exps = tabs
-    bsz, n = codes.shape
+    bsz, n = codes.shape[0], codes.shape[-1]  # codes may be (B, R, n) alignment rows
     dev = codes.device
     wpairS = exps["wpair"]
     hairpinS = logs["hairpin"]  # log form: sets row scale
@@ -327,7 +327,7 @@ def _inside_scaled(codes, length, params, tabs):
 def _outside_scaled(codes, length, params, tabs, ins):
     """Scaled outside pass over a batch -> bpp (B, n, n) in [i, j] layout."""
     logs, exps = tabs
-    bsz, n = codes.shape
+    bsz, n = codes.shape[0], codes.shape[-1]  # codes may be (B, R, n) alignment rows
     dev = codes.device
     i_idx = torch.arange(n, device=dev)
 
@@ -474,21 +474,31 @@ def mccaskill_bpp_batch_scaled(
     lengths: np.ndarray,
     params: EnergyParams | None = None,
     *,
+    w_extra: np.ndarray | None = None,
+    pt_override: np.ndarray | None = None,
     device,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched (bpp (B, n, n), logZ (B,)) on ``device``, both f32.
 
-    ``codes_batch``: (B, n) codes padded to a shared n; ``lengths``: (B,).
-    Memory is O(B n^2): callers cut large batches (fold.bpmatrix does).
+    ``codes_batch``: (B, n) codes padded to a shared n, or (B, R, n)
+    alignment rows (gap/other = 4) for the true-alifold averaged LUTs
+    (tables._build_luts_averaged); ``lengths``: (B,).  ``w_extra``: optional
+    (B, n, n) extra pair log-weights (taken as f32); ``pt_override``:
+    optional (B, n, n) pair types, -1 = cannot pair (see tables.build_luts).
+    All-gap rows and length 0 add no term to any sum.  Memory is
+    O(B n^2) for the DP and O(B R n^2) for the LUTs: callers cut large
+    batches (fold.bpmatrix does).
     """
     params = params or default_params()
     codes_np = np.asarray(codes_batch)
-    if codes_np.ndim != 2:
-        raise NotImplementedError("alignment-row batches (alifold) are not yet ported")
     codes = torch.as_tensor(codes_np.astype(np.int64), device=device)
     lens = torch.as_tensor(np.asarray(lengths, np.int64), device=device)
+    we = (None if w_extra is None
+          else torch.as_tensor(np.asarray(w_extra, np.float32), device=device))
+    po = (None if pt_override is None
+          else torch.as_tensor(np.asarray(pt_override, np.int64), device=device))
     with torch.no_grad():
-        tabs = _span_tables(codes, lens, params)
+        tabs = _span_tables(codes, lens, params, we, po)
         ins = _inside_scaled(codes, lens, params, tabs)
         bpp = _outside_scaled(codes, lens, params, tabs, ins)
     return bpp, ins["logZ"]

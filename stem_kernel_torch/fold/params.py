@@ -275,14 +275,24 @@ def load_params_file(path: str) -> EnergyParams:
       This is the parity path with the reference's folding engine
       (stem_kernel/common/bpmatrix.cpp:166-174 delegates to Vienna, whose
       energies come from exactly such a file).
-    - CONTRAfold weight files are not read here: the CONTRAfold fold path
-      is not ported yet.
+    - **CONTRAfold weights** (``feature_name value`` lines over the CLLM
+      feature space — see fold.contrafold): mapped onto the same engine
+      tables via contrafold_energy_params.  This is the real CONTRAfold
+      method (stem_kernel/common/bpmatrix.cpp:264-283).
     - the framework's simple text format (``<name> <value>`` lines).
     """
     with open(path) as f:
         first = f.readline()
     if first.startswith("## RNAfold parameter file"):
         return _load_vienna_par(path)
+    from .contrafold import (
+        contrafold_energy_params,
+        is_contrafold_params,
+        load_contrafold_params,
+    )
+
+    if is_contrafold_params(path):
+        return contrafold_energy_params(load_contrafold_params(path))
     return _load_simple(path)
 
 

@@ -7,7 +7,7 @@ them to f32.  Impossible entries are NEG (finite, so f32 arithmetic never
 produces NaN from inf - inf).
 
 Table semantics (Vienna loop-energy structure, see fold.params):
-  wpair        pair admissibility + per-pair bonus
+  wpair        pair admissibility + per-pair bonus + optional extra weight
   stack        helix stacking, outer (i,j) over inner (i+1, j-1)
   hairpin      FULL hairpin score for closing pair (i, j): length term +
                (size 3: terminal-AU; size > 3: mismatch_h) + special
@@ -25,7 +25,8 @@ Table semantics (Vienna loop-energy structure, see fold.params):
   ext_stem     exterior branch: terminal + mismatch_e / dangle5 / dangle3
                depending on neighbor existence (d2)
 
-The alignment-row averaged LUTs of the alifold path are not ported yet.
+(B, R, n) alignment rows switch to per-row LUTs averaged over the rows
+(``_build_luts_averaged``, the alifold path).
 """
 
 from __future__ import annotations
@@ -44,14 +45,23 @@ def _f(x, device) -> torch.Tensor:
     return torch.as_tensor(np.maximum(np.asarray(x, np.float64), NEG), device=device)
 
 
-def build_luts(codes: torch.Tensor, length: torch.Tensor,
-               params: EnergyParams) -> dict[str, torch.Tensor]:
+def build_luts(codes: torch.Tensor, length: torch.Tensor, params: EnergyParams,
+               w_extra: torch.Tensor | None = None,
+               pt_override: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
     """All (B, n, n) log-score LUTs for a batch of sequences.
 
     ``codes``: (B, n) integer codes (A, C, G, U = 0..3); ``length``: (B,).
-    The extra pair weights and pair-type overrides of the alifold path are
-    not ported yet.
+    ``w_extra``: optional (B, n, n) extra log-weight added to every
+    admissible pair.  ``pt_override``: optional (B, n, n) pair types (-1 =
+    cannot pair) replacing the code-derived types — the row-aware ALIFOLD
+    gate types a column pair by its majority canonical row pair.
+
+    ``codes`` of shape (B, R, n) are alignment rows (gap/unknown >= 4) and
+    switch to per-row energies averaged over the rows — see
+    :func:`_build_luts_averaged`.
     """
+    if codes.ndim == 3:
+        return _build_luts_averaged(codes, length, params, w_extra, pt_override)
     dev = codes.device
     codes = codes.long()
     bsz, n = codes.shape
@@ -59,8 +69,11 @@ def build_luts(codes: torch.Tensor, length: torch.Tensor,
     dmat = (ii[None, :] - ii[:, None])[None]  # (1, n, n): j - i
     length = length.to(dev).long()
 
-    PT = torch.as_tensor(PAIR_TYPE, device=dev).long()
-    pt_full = PT[codes[:, :, None], codes[:, None, :]]
+    if pt_override is None:
+        PT = torch.as_tensor(PAIR_TYPE, device=dev).long()
+        pt_full = PT[codes[:, :, None], codes[:, None, :]]
+    else:
+        pt_full = pt_override.to(dev).long()
     pt = pt_full
     if params.no_gu:
         pt = torch.where((pt == 2) | (pt == 3), -1, pt)
@@ -83,6 +96,8 @@ def build_luts(codes: torch.Tensor, length: torch.Tensor,
     bonus = _f(params.pair_bonus, dev)
     ptc = pt.clamp(min=0)
     wpair = torch.where(can, bonus[ptc], negt)
+    if w_extra is not None:
+        wpair = torch.where(can, wpair + w_extra.to(dev, DT), negt)
 
     rev = torch.as_tensor(REV_PAIR, device=dev).long()
     is_gu = (pt == 2) | (pt == 3)
@@ -258,3 +273,63 @@ def _apply_special_hairpins(hairpin, codes, params: EnergyParams, gu_gate):
 
 def _code_of(ch: str) -> int:
     return {"A": 0, "C": 1, "G": 2, "U": 3, "T": 3}.get(ch.upper(), -1)
+
+
+def _build_luts_averaged(rows: torch.Tensor, length: torch.Tensor, params: EnergyParams,
+                         w_extra: torch.Tensor | None = None,
+                         pt_override: torch.Tensor | None = None) -> dict[str, torch.Tensor]:
+    """True-alifold LUTs: per-row energies, averaged across alignment rows.
+
+    ``rows``: (B, R, n) codes, gap/unknown >= 4; ``length``: (B,) alignment
+    lengths.  Vienna's alipf_fold (reached by the reference at
+    stem_kernel/common/bpmatrix.cpp:355-397) evaluates every loop energy PER
+    SEQUENCE and Boltzmann-weights the average over rows (Hofacker 2002).
+    Here each row gets its own full LUT set (its own pair types, stacks,
+    mismatches, dangles), and every table entry is the masked mean over the
+    rows for which it is defined.
+
+    Documented deviations from alipf_fold (the reference package's, kept):
+    - loop SIZES are measured in alignment columns for every row;
+    - rows that cannot form a canonical pair at (i, j) are excluded from
+      that entry's average; the covariance term's non-canonical penalty
+      (``w_extra`` from bpmatrix.alifold_covariance) carries that penalty;
+    - gapped NEIGHBOUR positions are imputed with the column consensus (the
+      first most frequent base) for mismatch/dangle lookups.
+
+    All-gap rows contribute to no entry, so alignments of different depths
+    can share one (R, n) pad shape (the sums over R may round differently
+    with R).
+    """
+    dev = rows.device
+    rows = rows.long()
+    bsz, nrow, n = rows.shape
+    gap = rows >= 4
+    onehot = (rows[..., None] == torch.arange(4, device=dev)) & ~gap[..., None]
+    consensus = onehot.sum(dim=1).argmax(dim=-1)  # (B, n): first maximum
+    filled = torch.where(gap, consensus[:, None, :], rows.clamp(0, 3))
+    PT = torch.as_tensor(PAIR_TYPE, device=dev).long()
+    rc = rows.clamp(0, 3)
+    pt_r = PT[rc[..., :, None], rc[..., None, :]]
+    pt_r = torch.where(gap[..., :, None] | gap[..., None, :], -1, pt_r)
+
+    flat_len = length.to(dev).long().repeat_interleave(nrow)
+    luts_r = build_luts(filled.reshape(bsz * nrow, n), flat_len, params, None,
+                        pt_override=pt_r.reshape(bsz * nrow, n, n))
+
+    negt = torch.tensor(NEG, dtype=DT, device=dev)
+    out: dict[str, torch.Tensor] = {}
+    for k, v in luts_r.items():
+        v = v.reshape(bsz, nrow, n, n)
+        valid = v > NEG / 2
+        cnt = valid.sum(dim=1)
+        s = torch.where(valid, v, torch.zeros((), dtype=DT, device=dev)).sum(dim=1)
+        out[k] = torch.where(cnt > 0, s / cnt.clamp(min=1), negt)
+
+    wp = out["wpair"]
+    if w_extra is not None:
+        wp = torch.where(wp > NEG / 2, wp + w_extra.to(dev, DT), negt)
+    if pt_override is not None:
+        # row-aware admissibility gate (majority pair type, -1 = no row pairs)
+        wp = torch.where(pt_override.to(dev) >= 0, wp, negt)
+    out["wpair"] = wp
+    return out

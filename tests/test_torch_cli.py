@@ -24,6 +24,16 @@ CLI_BAND = 1.4e-2
 CORE = "gggcgcaagcuugaaagcgcccauaggcuaacguagcuagcuuaagc"  # 47 nt
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: beside other test workers, torch's thread pool
+    made these small folds many times slower than alone."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 def _data(tmp_path, n=4, seed=9):
     rng = np.random.default_rng(seed)
 
@@ -142,8 +152,7 @@ def test_device_cuda_without_gpu_raises(tmp_path, monkeypatch):
                     "+1", p["pos"], "-1", p["neg"]])
 
 
-@pytest.mark.parametrize("flag", [["--devices", "2"], ["--single-device"], ["--use-alifold"],
-                                  ["--use-contrafold", "default"], ["--coarse-shapes"]])
+@pytest.mark.parametrize("flag", [["--devices", "2"], ["--single-device"], ["--coarse-shapes"]])
 def test_unported_options_are_rejected(tmp_path, flag, capsys):
     p = _data(tmp_path, n=1)
     with pytest.raises(SystemExit) as exc:
@@ -178,3 +187,66 @@ def test_pair_engine_matches_jax_engine(log_values):
     j_rows, j_self = j.rows({"v": test}, sv_index=sv)
     np.testing.assert_allclose(t_rows, j_rows, rtol=1e-6)
     np.testing.assert_allclose(t_self, j_self, rtol=1e-6)
+
+
+# the fold flags of the fold slice, and stem_kernel_lite's other options
+OPTION_CASES = {
+    "use_alifold": ["--use-alifold"],
+    "use_contrafold": ["--use-contrafold", "default"],
+    "log": ["--log"],
+    "no_ribosum": ["--no-ribosum"],
+    "no_string": ["--no-string"],
+    "fast_fold": ["--fast-fold"],
+    "noGU_noLonelyPairs": ["--noGU", "--noLonelyPairs"],
+    "p_length_band": ["-p", "0.1", "--length-band", "0"],
+}
+
+
+@pytest.mark.parametrize("flags", list(OPTION_CASES.values()), ids=list(OPTION_CASES))
+def test_options_match_jax_cli(tmp_path, flags):
+    """Each option on a few sequences, the port on the CPU against the JAX
+    CLI, within the 1.4e-2 band; ``--log`` runs unnormalised (the log
+    kernel's cosine normalisation divides by log K(x, x), which is 0 on
+    these short sequences in both packages) and is held to the band
+    relative to its largest value."""
+    p = _data(tmp_path, n=2)
+    norm = [] if "--log" in flags else ["-n"]
+    grams = {}
+    for tag, main, extra in (("t", t_cli.main, ["--device", "cpu"]), ("j", j_cli.main, [])):
+        out = str(tmp_path / f"{tag}.dat")
+        assert main([*extra, *flags, "--precision", "highest", *norm, out,
+                     "+1", p["pos"], "-1", p["neg"]]) == 0
+        grams[tag] = read_precomputed(out)
+    (tl, tg), (jl, jg) = grams["t"], grams["j"]
+    assert tl == jl == ["+1"] * 2 + ["-1"] * 2
+    assert tg.shape == (4, 4) and np.isfinite(tg).all()
+    scale = np.abs(jg).max() if "--log" in flags else 1.0
+    assert np.abs(tg - jg).max() <= CLI_BAND * scale
+
+
+@pytest.mark.parametrize("svm_type", range(5))
+def test_svm_tools_match_jax_svm_tools(tmp_path, svm_type):
+    """svm_tools train and predict with -s 0..4 (C-SVC, nu-SVC, one-class,
+    epsilon-SVR, nu-SVR): model and prediction files byte-equal, both
+    packages on their native SMO."""
+    from stem_kernel_torch.gram.io import write_precomputed, write_rows
+    from stem_kernel_tpu.cli import svm_tools as j_svm
+
+    rng = np.random.default_rng(20 + svm_type)
+    x = rng.normal(size=(36, 3))
+    k = np.exp(-0.5 * ((x[:, None] - x[None]) ** 2).sum(-1))
+    if svm_type < 3:
+        labels = ["+1" if v > 0 else "-1" for v in x[:, 0] + 0.3 * x[:, 1]]
+    else:
+        labels = [f"{v:.4f}" for v in x[:, 0] - 0.5 * x[:, 2]]
+    train, test = str(tmp_path / "k.dat"), str(tmp_path / "rows.dat")
+    write_precomputed(train, labels[:30], k[:30, :30])
+    write_rows(test, labels[30:], k[30:, :30])
+    outs = {}
+    for tag, mod in (("t", svm_tools), ("j", j_svm)):
+        model, pred = str(tmp_path / f"{tag}.model"), str(tmp_path / f"{tag}.pred")
+        assert mod.train_main(["-s", str(svm_type), train, model]) == 0
+        assert mod.predict_main([test, model, pred]) == 0
+        outs[tag] = (open(model, "rb").read(), open(pred, "rb").read())
+    assert outs["t"] == outs["j"]
+    assert len(outs["t"][1].splitlines()) == 6

@@ -41,9 +41,11 @@ def _train(main, extra, out, p):
 
 @pytest.mark.parametrize("flags,band", [(["-b", "6"], BAND), (["-b", "6", "-a", "0.5"], BAND),
                                         ([], BAND), (["-a", "0.5"], BAND),
-                                        (["-b", "6", "-p", "0.01"], FOLD_BAND)],
+                                        (["-b", "6", "-p", "0.01"], FOLD_BAND),
+                                        (["-b", "6", "-l", "4", "-s", "1.5", "-v", "0.3",
+                                          "-g", "0.6"], BAND)],
                          ids=["banded", "banded PHMM anchors", "dense", "dense PHMM windows",
-                              "banded folded weights"])
+                              "banded folded weights", "banded_l_s_v_g"])
 def test_train_flow_matches_jax_cli(tmp_path, flags, band):
     p = _files(tmp_path, TRAIN)
     t_labels, t_g = _train(t_cli.main, ["--device", "cpu", *flags], str(tmp_path / "t.dat"), p)

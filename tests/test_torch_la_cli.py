@@ -62,9 +62,21 @@ def _gram(main, extra, out, p):
     return read_precomputed(out)
 
 
-@pytest.mark.parametrize("flags", [[], ["--noBP"], ["--SW"]], ids=["default", "noBP", "SW"])
+BPLA_FLAGS = {
+    "default": [], "noBP": ["--noBP"], "SW": ["--SW"],
+    "use_alifold": ["--use-alifold"], "use_contrafold": ["--use-contrafold", "default"],
+    "a_b_g_e": ["-a", "3.5", "-b", "0.2", "-g", "-6", "-e", "-0.5"],
+    "score": ["--score", "SCORE"],
+}
+
+
+@pytest.mark.parametrize("flags", list(BPLA_FLAGS.values()), ids=list(BPLA_FLAGS))
 def test_bpla_train_flow_matches_jax_cli(tmp_path, flags):
     p = _rna(tmp_path)
+    if "SCORE" in flags:
+        score = tmp_path / "score.txt"
+        score.write_text("a u 1.5\nc g 2.5\ng u 0.5\na a -0.5\n")
+        flags = [str(score) if f == "SCORE" else f for f in flags]
     t_labels, t_g = _gram(t_bpla.main, ["--device", "cpu", *flags], str(tmp_path / "t.dat"), p)
     j_labels, j_g = _gram(j_bpla.main, flags, str(tmp_path / "j.dat"), p)
     assert t_labels == j_labels == ["+1"] * 4 + ["-1"] * 4
@@ -98,7 +110,8 @@ def test_bpla_predict_flow_matches_jax_cli(tmp_path):
     np.testing.assert_allclose(tn, jn, rtol=1e-3)
 
 
-@pytest.mark.parametrize("flags", [[], ["--SW"]], ids=["LA", "SW"])
+@pytest.mark.parametrize("flags", [[], ["--SW"], ["-g", "-9", "-e", "-0.8", "-b", "0.2"]],
+                         ids=["LA", "SW", "g_e_b"])
 def test_la_kernel_matches_jax_cli(tmp_path, flags):
     p = _proteins(tmp_path)
     t_labels, t_g = _gram(t_la.main, ["--device", "cpu", *flags], str(tmp_path / "t.dat"), p)
@@ -119,7 +132,6 @@ def test_device_cuda_without_gpu_raises(tmp_path, monkeypatch, cli):
 
 
 @pytest.mark.parametrize("cli,flag", [("bpla_kernel", ["--single-device"]),
-                                      ("bpla_kernel", ["--use-alifold"]),
                                       ("la_kernel", ["--devices", "2"])])
 def test_unported_options_are_rejected(tmp_path, cli, flag, capsys):
     p = _proteins(tmp_path, n=1) if cli == "la_kernel" else _rna(tmp_path, n=1)

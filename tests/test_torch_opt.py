@@ -415,8 +415,18 @@ def test_device_cuda_without_gpu_raises(tmp_path, monkeypatch):
         t_cli.main(["--fold", "2", "+1", pf, "-1", nf])
 
 
-def test_use_alifold_is_rejected(tmp_path, capsys):
-    pf, nf = _write_corpus(tmp_path)
-    with pytest.raises(SystemExit):
-        t_cli.main(["--device", "cpu", "--use-alifold", "--fold", "2", "+1", pf, "-1", nf])
-    assert "not yet ported" in capsys.readouterr().err
+def test_use_alifold_matches_jax_cli(tmp_path, capsys):
+    """bpla_optimizer -n --use-alifold on CLUSTAL alignments (the JAX CLI
+    reaches alifold_bpp through bpp_for_alignments, as the port does)."""
+    from test_torch_alifold import hairpin_alignments, write_clustal
+
+    pos, neg = hairpin_alignments(np.random.default_rng(11), 3, 3, 30)
+    pf = write_clustal(tmp_path / "p.aln", pos)
+    nf = write_clustal(tmp_path / "n.aln", neg)
+    argv = ["-n", "--use-alifold", "--fold", "2", "+1", pf, "-1", nf]
+    j_first, j_f, j_printed = _cli_run(j_cli.main, argv, capsys)
+    t_first, t_f, t_printed = _cli_run(t_cli.main, ["--device", "cpu", *argv], capsys)
+    assert np.isfinite(t_printed).all()
+    np.testing.assert_allclose(t_first, j_first, rtol=1e-3)
+    assert abs(t_f - j_f) <= 1e-3 * abs(j_f)
+    np.testing.assert_allclose(t_printed, j_printed, rtol=1e-3)

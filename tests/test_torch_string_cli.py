@@ -38,6 +38,8 @@ CORE = "gggcgcaagcuugaaagcgcccauaggcuaacguagcuagcuuaagc"  # 47 nt
 CASES = {
     "la_kernel_lite": (t_lite.main, j_lite.main, [], 5e-7),
     "la_kernel_lite_use_bp": (t_lite.main, j_lite.main, ["--use-bp"], 1e-4),
+    "la_kernel_lite_use_bp_use_alifold": (t_lite.main, j_lite.main,
+                                          ["--use-bp", "--use-alifold"], 1e-4),
     "string_kernel": (t_string.main, j_string.main, [], 1e-6),
     "simpal": (t_simpal.main, j_simpal.main, ["-m", "60"], 1e-4),
 }
@@ -169,8 +171,7 @@ def test_device_cuda_without_gpu_raises(tmp_path, monkeypatch, cli):
         main(["-n", str(tmp_path / "k.dat"), "+1", p["pos"], "-1", p["neg"]])
 
 
-@pytest.mark.parametrize("cli,flag", [("la_kernel_lite", ["--use-alifold"]),
-                                      ("string_kernel", ["--single-device"]),
+@pytest.mark.parametrize("cli,flag", [("string_kernel", ["--single-device"]),
                                       ("simpal", ["--devices", "2"])])
 def test_unported_options_are_rejected(tmp_path, cli, flag, capsys):
     main = {"la_kernel_lite": t_lite.main, "string_kernel": t_string.main,
