@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k6-values OUT.json   # phase 12's K6 log K only
+    python3 chip_smoke.py --rank-worker JOBS.json  # one rank of phase 21 (it starts them)
 
 Phases (the first failure exits non-zero; nothing is caught):
 
@@ -165,11 +166,31 @@ Phases (the first failure exits non-zero; nothing is caught):
    ``train_contrafold`` on 4 hairpins of 20-30 nt, card against CPU
    within 1e-9 rel; (f) ``bpla_optimizer -n --use-alifold --fold 2`` on
    20 + 20 alignments of 48-60 columns under phase 16's bands and solver
-   split.
+   split;
+21. two ranks on the one card: the script starts itself twice with
+   ``--rank-worker`` as ranks 0 and 1 of a torch.distributed group (gloo;
+   WORLD_SIZE 2, LOCAL_RANK 0 for both: two single-GPU "nodes" sharing the
+   H100), each in its own working directory, and each rank calls the CLIs'
+   ``main`` in its process: ``stem_kernel_lite -n`` train and predict on
+   phase 4's corpus (K1, both routes), ``bpla_kernel -n`` and ``-n --SW``
+   on it (K2; ``--SW`` runs the max-plus DP, plain torch, as plain XLA in
+   the JAX package), ``la_kernel -n`` on phase 8's proteins (K4) and
+   ``stem_kernel -n -b 16`` on 40 config-3 sequences (K6); no CLI reaches
+   K3, so each rank also runs phase 9's flagship exp Gram through
+   ``PairKernelEngine`` over the group's mesh.  The same jobs run first in
+   this process as one rank (their Grams bit-equal to phases 4, 7, 8 and
+   9's).  Every file rank 0 writes must be byte-equal to the
+   one-rank file, rank 1 must write none, each rank must launch each of the
+   job's kernels, and the two ranks' launches must sum to the one-rank
+   count; a rank that exits non-zero fails the phase.  Printed: each job's
+   one-rank and two-rank walls (the CLI, and its Gram passes), and
+   ``scaling_efficiency`` of the stem kernel on 1 and 2 ranks, all labelled
+   "two ranks sharing one card: not a scaling figure".
 
 Before each path every launch count is set to 0, and it is read just after;
 phases 16-18 must leave every count at 0; phase 19 must launch K1 and K2;
-phase 20's alifold and CONTRAfold paths K2, and K1 on both routes.
+phase 20's alifold and CONTRAfold paths K2, and K1 on both routes; phase
+21 reads each rank's counts of each job.
 The line before the last lists every kernel with its launches on the main
 path, its error against its plain version, its time, its plain version's
 time and its bound: the larger of the bytes it must move over 3.35 TB/s and
@@ -282,6 +303,10 @@ SFOLD_SAMPLES = 200
 SFOLD_BAND = 0.08  # tests/test_fold.py's Monte-Carlo band, for a draw f64 rounding moved
 TRAIN_EXAMPLES, TRAIN_LEN, TRAIN_STEPS = 4, (20, 30), 5  # the CONTRAfold trainer's run
 TRAIN_RTOL = 1e-9  # its loss history, cuda against cpu (f64)
+# phase 21: two ranks sharing the one card
+RANK_TIMEOUT = 600  # seconds each rank may take for all its jobs
+SCALE_N = 32  # sequences a class behind the stem kernel's scaling_efficiency batches
+TWO_RANKS = "two ranks sharing one card: not a scaling figure"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1833,6 +1858,281 @@ def slice5_phase(dev, smi: str, reset_counts, counts, corpus: tuple, stem: dict,
     tmp_dir.cleanup()
 
 
+def kernel_counters():
+    """(wrappers, reset_counts, counts): each kernel's wrapper by its key,
+    a function setting every launch count to 0 and one reading K1-K6."""
+    from stem_kernel_torch.ops import la
+    from stem_kernel_torch.ops.full_stem_banded import full_stem_banded_log
+    from stem_kernel_torch.ops.stem_fixed_point import stem_fixed_point
+
+    wrappers = {"K1": stem_fixed_point, "K2": la.la_log_factored, "K3": la.la_exp_factored,
+                "K4": la.la_exp, "K5": la.la_log, "K6": full_stem_banded_log}
+
+    def reset_counts() -> None:
+        for w in wrappers.values():
+            w.launches = 0
+        stem_fixed_point.launches_wide = 0
+        for w in (la.la_log_factored, la.la_exp_factored, la.la_exp, la.la_log):
+            w.launches_lanes = 0
+
+    def counts() -> dict[str, int]:
+        return {k: w.launches for k, w in wrappers.items()}
+
+    return wrappers, reset_counts, counts
+
+
+@contextlib.contextmanager
+def gram_timer(acc: list):
+    """Add the wall time of every ``PairKernelEngine.run_pairs`` call (a
+    Gram pass, its gather included; it returns host values) to acc[0]."""
+    from stem_kernel_torch.gram.engine import PairKernelEngine
+
+    run_pairs = PairKernelEngine.run_pairs
+
+    def timed(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return run_pairs(self, *args, **kwargs)
+        finally:
+            acc[0] += time.perf_counter() - t0
+
+    PairKernelEngine.run_pairs = timed
+    try:
+        yield
+    finally:
+        PairKernelEngine.run_pairs = run_pairs
+
+
+def flagship_gram(argv: list) -> int:
+    """The flagship exp BPLA Gram (K3) through ``PairKernelEngine`` over the
+    ranks of the process group, as a library user runs it (no CLI reaches
+    K3: ``bpla_kernel`` takes log space, and ``--SW`` the max-plus DP, in
+    both packages).  ``argv``: [features .npz, output .npy], written by
+    rank 0 alone."""
+    from stem_kernel_torch.gram.engine import PairKernelEngine
+    from stem_kernel_torch.models.bpla import BPLAKernel
+    from stem_kernel_torch.parallel.distributed import initialize, rank_device
+    from stem_kernel_torch.parallel.mesh import process_zero, resolve_mesh
+
+    initialize()
+    dev = rank_device("cuda")
+    with np.load(argv[0]) as data:
+        feats = dict(data)
+    g = PairKernelEngine(BPLAKernel().to(dev), feats, device=dev, batch_size=LA_BATCH,
+                         mesh=resolve_mesh(0)).gram(normalize=True)
+    if process_zero():
+        np.save(argv[1], g)
+    return 0
+
+
+def rank_jobs(f: dict, out: str = "") -> list:
+    """Phase 21's jobs, (label, CLI module or "flagship", argv), outputs
+    under ``out``."""
+    train = ["+1", f["pos"], "-1", f["neg"]]
+    return [
+        ("stem_kernel_lite -n", "stem_kernel_lite",
+         ["--device", "cuda", "-n", f"{out}km.dat", *train]),
+        ("stem_kernel_lite -n predict", "stem_kernel_lite",
+         ["--device", "cuda", "-n", f"{out}test.dat", "--model", f["model"],
+          "--predict", f"{out}pred.txt", *train, "--test", "+1", f["tpos"], "-1", f["tneg"]]),
+        ("bpla_kernel -n", "bpla_kernel", ["--device", "cuda", "-n", f"{out}bpla.dat", *train]),
+        ("bpla_kernel -n --SW", "bpla_kernel",
+         ["--device", "cuda", "-n", "--SW", f"{out}sw.dat", *train]),
+        ("flagship exp BPLA Gram (PairKernelEngine)", "flagship",
+         [f["profiles"], f"{out}flagship.npy"]),
+        ("la_kernel -n", "la_kernel",
+         ["--device", "cuda", "-n", f"{out}la.dat", "+1", f["ppos"], "-1", f["pneg"]]),
+        (f"stem_kernel -n -b {FULL_BAND}", "stem_kernel",
+         ["--device", "cuda", "-n", "-b", str(FULL_BAND), f"{out}full.dat",
+          "+1", f["fpos"], "-1", f["fneg"]]),
+    ]
+
+
+# the kernels each job of phase 21 must launch on both ranks (--SW: none,
+# the max-plus DP is plain torch, as it is plain XLA in the JAX package)
+RANK_JOB_KERNELS = (("K1", "K1w"), ("K1w",), ("K2",), (), ("K3",), ("K4",), ("K6",))
+
+
+def run_job(cli: str, argv: list, reset_counts, counts) -> dict:
+    """One CLI run in this process: its launch counts (K1w: K1's
+    per-product route), its wall and its Gram passes' wall, in seconds."""
+    import importlib
+
+    from stem_kernel_torch.ops.stem_fixed_point import stem_fixed_point
+
+    main_fn = (flagship_gram if cli == "flagship"
+               else importlib.import_module(f"stem_kernel_torch.cli.{cli}").main)
+    gram_s = [0.0]
+    reset_counts()
+    t0 = time.perf_counter()
+    with gram_timer(gram_s):
+        rc = main_fn(argv)
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"{cli} {argv}: exit code {rc}")
+    return {"counts": {**counts(), "K1w": stem_fixed_point.launches_wide},
+            "wall_s": wall, "gram_s": gram_s[0]}
+
+
+def rank_worker(spec_path: str) -> int:
+    """``--rank-worker JOBS.json``: one rank of phase 21.  RANK, WORLD_SIZE,
+    LOCAL_RANK, MASTER_ADDR and MASTER_PORT come from the caller, and the
+    CLIs join the group themselves.  Prints ``rank_report`` and a JSON
+    object as its last line: each job's counts and walls, and
+    ``scaling_efficiency`` of the stem kernel on 1 and 2 ranks."""
+    from stem_kernel_torch.io.parsers import iter_alignments
+    from stem_kernel_torch.models.composite import (
+        StemLiteConfig, featurize_stem_examples, make_stem_lite_kernel_fn,
+    )
+    from stem_kernel_torch.ops import full_f32
+    from stem_kernel_torch.parallel.distributed import rank_device, scaling_efficiency, world
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    full_f32()
+    _, reset_counts, counts = kernel_counters()
+    report = {"jobs": [run_job(cli, argv, reset_counts, counts) for _, cli, argv in spec["jobs"]]}
+    rank, n_ranks = world()
+    check(n_ranks == 2, f"rank {rank}: {n_ranks} ranks in the group, not 2")
+    dev = rank_device("cuda")
+    cfg = StemLiteConfig()
+    alns = [a for path in spec["scaling_fasta"] for a in list(iter_alignments(path))[:SCALE_N]]
+    feats, iters = featurize_stem_examples(alns, cfg, device=dev)
+    kernel_fn = make_stem_lite_kernel_fn(cfg, iters, device=dev)
+    rng = np.random.default_rng(SEED)
+
+    def feats_fn(bsz: int):
+        ix, iy = (torch.as_tensor(rng.integers(0, len(alns), bsz), device=dev) for _ in range(2))
+        return ({k: v.index_select(0, ix) for k, v in feats.items()},
+                {k: v.index_select(0, iy) for k, v in feats.items()})
+
+    report["scaling"] = scaling_efficiency(kernel_fn, feats_fn, batch_per_device=K1_BATCH,
+                                           device_counts=[1, 2], device="cuda")
+    report["device"] = str(dev)
+    print("rank_report " + json.dumps(report), flush=True)
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def slice7_phase(smi: str, reset_counts, counts, corpus: tuple, proteins: tuple,
+                 profiles: dict, full_train: list, earlier: dict) -> None:
+    """Phase 21: the Gram CLIs on two ranks sharing the card.  ``corpus``:
+    phase 4's (pos, neg, tpos, tneg); ``proteins``: phase 8's (ppos, pneg);
+    ``profiles``: phase 9's random-profile features; ``full_train``: phase
+    13's config-3 sequences; ``earlier``: output file name -> the Gram an
+    earlier phase computed from the same inputs the same way."""
+    from stem_kernel_torch.cli import svm_tools
+    from stem_kernel_torch.gram.io import read_precomputed
+
+    t_phase = time.perf_counter()
+    pos, neg, tpos, tneg = corpus
+    ppos, pneg = proteins
+    tmp_dir = tempfile.TemporaryDirectory()
+    p = lambda f: os.path.join(tmp_dir.name, f)  # noqa: E731
+    half, n_a = FULL_N // 2, FULL_A // 2
+    f = {"pos": write_fasta(p("pos.fa"), pos, "p"), "neg": write_fasta(p("neg.fa"), neg, "n"),
+         "tpos": write_fasta(p("tpos.fa"), tpos, "tp"),
+         "tneg": write_fasta(p("tneg.fa"), tneg, "tn"),
+         "ppos": write_fasta(p("ppos.fa"), ppos, "p"), "pneg": write_fasta(p("pneg.fa"), pneg, "n"),
+         "fpos": write_fasta(p("fpos.fa"), full_train[:n_a], "p"),
+         "fneg": write_fasta(p("fneg.fa"), full_train[half:half + n_a], "n"),
+         "model": p("one/km.model"), "profiles": p("profiles.npz")}
+    np.savez(f["profiles"], **profiles)
+    for d in ("one", "rank0", "rank1"):
+        os.mkdir(p(d))
+
+    # one rank, in this process
+    one = []
+    for i, (label, cli, argv) in enumerate(rank_jobs(f, p("one") + os.sep)):
+        one.append(run_job(cli, argv, reset_counts, counts))
+        if i == 0:
+            svm_tools.train_main([p("one/km.dat"), f["model"]])
+    for name, g in earlier.items():
+        path = p(f"one/{name}")
+        same = np.array_equal(np.load(path) if name.endswith(".npy")
+                              else read_precomputed(path)[1], g)
+        print(f"phase 21 one-rank {name}: equal to the earlier phase's Gram bit for bit: {same}")
+        check(same, f"the one-rank {name} differs from the earlier phase's")
+
+    # two ranks: this script, started twice
+    spec = p("jobs.json")
+    with open(spec, "w") as fh:
+        json.dump({"jobs": rank_jobs(f), "scaling_fasta": [f["pos"], f["neg"]]}, fh)
+    env = {**os.environ, "WORLD_SIZE": "2", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(free_port())}
+    t0 = time.perf_counter()
+    logs = [open(p(f"rank{r}.log"), "w+") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank-worker", spec],
+                              cwd=p(f"rank{r}"), env={**env, "RANK": str(r)},
+                              stdout=log, stderr=subprocess.STDOUT)
+             for r, log in enumerate(logs)]
+    try:
+        # a rank that fails leaves the other waiting in a gather: stop both
+        while (any(proc.poll() is None for proc in procs)
+               and not any(proc.poll() for proc in procs)
+               and time.perf_counter() - t0 < RANK_TIMEOUT):
+            time.sleep(0.5)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+    ranks_s = time.perf_counter() - t0
+    outs = []
+    for log in logs:
+        log.seek(0)
+        outs.append(log.read())
+        log.close()
+    # a rank that failed by itself first, before the one stopped for it
+    for r in sorted(range(2), key=lambda r: procs[r].returncode < 0):
+        check(procs[r].returncode == 0,
+              f"rank {r} exited with {procs[r].returncode}:\n{outs[r][-6000:]}")
+    reports = []
+    for r, out in enumerate(outs):
+        last = out.strip().splitlines()[-1]
+        check(last.startswith("rank_report "), f"rank {r} printed no report:\n{out[-6000:]}")
+        reports.append(json.loads(last[len("rank_report "):]))
+    print(f"phase 21: two ranks ran all jobs in {ranks_s:.1f} s (two processes, each paying "
+          f"its torch import and CUDA context); devices {[rep['device'] for rep in reports]}")
+
+    written = sorted(os.listdir(p("rank0")))
+    want = sorted(set(os.listdir(p("one"))) - {"km.model"})
+    print(f"phase 21 files: rank 0 wrote {written}; rank 1 wrote {sorted(os.listdir(p('rank1')))}")
+    check(os.listdir(p("rank1")) == [], "rank 1 wrote files")
+    check(written == want, f"rank 0 wrote {written}, not {want}")
+    for name in written:
+        with open(p(f"rank0/{name}"), "rb") as a, open(p(f"one/{name}"), "rb") as b:
+            check(a.read() == b.read(), f"two ranks' {name} differs from one rank's")
+    for (label, _, _), need, o, r0, r1 in zip(rank_jobs(f), RANK_JOB_KERNELS, one,
+                                              *(rep["jobs"] for rep in reports)):
+        c0, c1, c = r0["counts"], r1["counts"], o["counts"]
+        ran = [k for k in c if c[k] or c0[k] or c1[k]]
+        print(f"phase 21 {label}: launches one rank {({k: c[k] for k in ran})}, rank 0 "
+              f"{({k: c0[k] for k in ran})}, rank 1 {({k: c1[k] for k in ran})}; walls "
+              f"({TWO_RANKS}): one rank {o['wall_s']:.2f} s (Gram {o['gram_s']:.2f} s), "
+              f"two ranks {max(r0['wall_s'], r1['wall_s']):.2f} s (Gram "
+              f"{max(r0['gram_s'], r1['gram_s']):.2f} s; rank 0 {r0['wall_s']:.2f} s, Gram "
+              f"{r0['gram_s']:.2f} s; rank 1 {r1['wall_s']:.2f} s, Gram {r1['gram_s']:.2f} s)")
+        for k in c:
+            check(c0[k] + c1[k] == c[k], f"{label}: {k} launches {c0[k]} + {c1[k]} != {c[k]}")
+        for k in need:
+            check(c0[k] > 0 and c1[k] > 0, f"{label}: a rank never launched {k}")
+    eff = reports[0]["scaling"]
+    print(f"phase 21 scaling_efficiency, stem kernel, {K1_BATCH} pairs a rank of "
+          f"{2 * SCALE_N} sequences ({TWO_RANKS}) on {smi}: "
+          + ", ".join(f"{n} rank(s) {v:.1f} pairs/s" for n, v in eff.items()))
+    check(reports[1]["scaling"] == eff and all(np.isfinite(v) and v > 0 for v in eff.values()),
+          f"scaling_efficiency: {reports[0]['scaling']} and {reports[1]['scaling']}")
+    tmp_dir.cleanup()
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)",
@@ -1866,18 +2166,7 @@ def main() -> int:
     )
     from stem_kernel_torch.utils.shuffle import dinucleotide_shuffle
 
-    wrappers = {"K1": stem_fixed_point, "K2": la.la_log_factored, "K3": la.la_exp_factored,
-                "K4": la.la_exp, "K5": la.la_log, "K6": full_stem_banded_log}
-
-    def reset_counts() -> None:
-        for w in wrappers.values():
-            w.launches = 0
-        stem_fixed_point.launches_wide = 0
-        for w in (la.la_log_factored, la.la_exp_factored, la.la_exp, la.la_log):
-            w.launches_lanes = 0
-
-    def counts() -> dict[str, int]:
-        return {k: w.launches for k, w in wrappers.items()}
+    _, reset_counts, counts = kernel_counters()
 
     # ---- 1. environment ----
     full_f32()
@@ -2652,6 +2941,9 @@ def main() -> int:
                  {"g": g_stem, "launches": train_launches + train_wide, "train_s": train_s,
                   "predict_s": predict_s}, g_bpla)
     slice6_phase(dev, smi, reset_counts, counts, (pos, neg, tpos, tneg))
+    slice7_phase(smi, reset_counts, counts, (pos, neg, tpos, tneg), (ppos, pneg), prof_feats,
+                 full_train, {"km.dat": g_stem, "bpla.dat": g_bpla, "flagship.npy": g_fwd,
+                              "la.dat": g_la})
 
     meta = {
         "K1": ("stem_fixed_point", "stem_kernel_torch/csrc/stem_fixed_point.cu",
@@ -2686,4 +2978,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--k6-values"]:
         sys.exit(k6_values(sys.argv[2]))
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(sys.argv[2]))
     sys.exit(main())

@@ -12,12 +12,14 @@ LoaderFactory>, stem_kernel/common/framework.h:100-416):
   diagonals, write matrix rows / norm file, and run SVM prediction per model
   (framework.h:167-306).
 
-Everything runs on one device, named explicitly.  ``--checkpoint`` resumes
-the train Gram unit by unit (gram.checkpoint), ``--trace-dir`` writes a
-torch.profiler Chrome trace of the whole flow (utils.tracing), and
-``--use-pf-scale-file`` reads 'label file pf_file' triples.  Multi-device
-sharding (``--devices``, ``--single-device``) is not ported yet: its
-options are rejected, never ignored.
+A process runs on one device, named explicitly.  Started as several
+ranks (``torchrun --nproc-per-node N -m stem_kernel_torch.cli.<cli> ...``),
+each rank drives the GPU of its ``LOCAL_RANK``, the Gram's pair batches are
+split across the ranks (``--devices``, ``--single-device``; parallel.mesh)
+and rank 0 alone writes files.  ``--checkpoint`` resumes the train Gram
+unit by unit (gram.checkpoint), ``--trace-dir`` writes a torch.profiler
+Chrome trace of the whole flow (utils.tracing), and ``--use-pf-scale-file``
+reads 'label file pf_file' triples.
 """
 
 from __future__ import annotations
@@ -35,12 +37,11 @@ from ..gram.engine import PairKernelEngine
 from ..gram.io import _open_write, write_norm, write_precomputed, write_rows
 from ..io.parsers import expand_globs, iter_alignments
 from ..io.profile import Alignment
+from ..parallel.distributed import initialize, rank_device
+from ..parallel.mesh import process_zero, resolve_mesh
 from ..svm.model import load_model, load_sv_index
 from ..svm.train import svm_predict_probability, svm_predict_values
 from ..utils.tracing import device_profile
-
-# options of the JAX CLI that need later slices of the port
-NOT_YET_PORTED = {"devices": "--devices", "single_device": "--single-device"}
 
 
 @dataclass
@@ -63,6 +64,7 @@ class AppOptions:
     pf_files: list[str] = field(default_factory=list)
     pf_ts_files: list[str] = field(default_factory=list)
     stream_chunk: int = 64  # test examples featurized per predict chunk
+    devices: int = 0  # 0 = every rank; 1 = single-device dispatch on each rank
     checkpoint: str = ""  # train-Gram checkpoint/resume directory
 
 
@@ -82,11 +84,18 @@ def add_common_options(p: argparse.ArgumentParser) -> None:
     p.add_argument("--predict", action="append", default=[],
                    help="output file name of prediction results")
     p.add_argument("-t", "--threads", type=int, default=1,
-                   help="accepted for compatibility (one device, one stream)")
+                   help="accepted for compatibility (parallelism is rank based)")
     p.add_argument("--stream-chunk", type=int, default=64,
                    help="predict mode: featurize this many test examples at a time")
-    p.add_argument("--devices", type=int, default=None, help="not yet ported")
-    p.add_argument("--single-device", action="store_true", help="not yet ported")
+    p.add_argument("--devices", type=int, default=0,
+                   help="split the Gram's pair batches over this many ranks, one "
+                        "GPU each (0 = every rank; the analogue of the reference's "
+                        "mpirun rank count).  Start the ranks with torchrun "
+                        "--nproc-per-node N -m stem_kernel_torch.cli.<cli> ...; "
+                        "without a launcher one process drives one GPU")
+    p.add_argument("--single-device", action="store_true",
+                   help="force plain single-device dispatch (same as --devices 1): "
+                        "every rank computes the whole Gram, rank 0 writes it")
     p.add_argument("--checkpoint", default="",
                    help="directory for unit-granular train-Gram checkpointing: a "
                         "restarted train run resumes, skipping completed units "
@@ -105,21 +114,17 @@ def add_common_options(p: argparse.ArgumentParser) -> None:
     # reference's collect_unrecognized pattern (stem_kernel_lite/main.cpp:152-163)
 
 
-def reject_unported(p: argparse.ArgumentParser, ns: argparse.Namespace,
-                    names: Mapping[str, str]) -> None:
-    """Exit with a usage error for any given option that is not ported."""
-    for attr, flag in names.items():
-        if getattr(ns, attr, None) not in (None, False, ""):
-            p.error(f"{flag} is not yet ported to stem_kernel_torch")
-
-
 def resolve_device(name: str) -> torch.device:
-    """The device the CLI runs on; 'cuda' without a GPU raises."""
+    """The device the CLI runs on, after joining the process group of a
+    multi-process launch (parallel.distributed.initialize): under a group,
+    'cuda' is the GPU of this rank's ``LOCAL_RANK``.  'cuda' without a GPU
+    raises."""
+    initialize()
     if name == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "--device cuda: no CUDA device is available (pass --device cpu to "
             "run the plain torch versions on the CPU)")
-    return torch.device(name)
+    return rank_device(name)
 
 
 def parse_args_with_positionals(p: argparse.ArgumentParser, argv):
@@ -143,6 +148,7 @@ def parse_positional(ns: argparse.Namespace) -> AppOptions:
         trace_dir=ns.trace_dir,
         use_pf_scale_file=ns.use_pf_scale_file,
         stream_chunk=ns.stream_chunk,
+        devices=1 if ns.single_device else ns.devices,
         checkpoint=ns.checkpoint,
     )
     if "--test" in extra:
@@ -220,9 +226,16 @@ def run_app(
     featurize_buckets=None,
     merge_aux=None,
     slab_batches: int = 16,
+    mesh=None,
 ) -> None:
     """Execute the train or predict flow on ``device``, inside a profiler
     trace when ``opts.trace_dir`` is set.
+
+    The CLIs are the multi-process programs, as the reference's binaries are
+    the MPI entry points (framework.h:418-433): the pair batches are split
+    over the ranks of ``resolve_mesh(opts.devices)`` (an explicit ``mesh=``
+    overrides it), a rank outside that mesh does nothing, and only rank 0
+    writes files (framework.h:135-163).
 
     ``log_kernel``: the kernel_fn returns log K; normalization happens in log
     space.  ``featurize_buckets``: alignments -> list of (indices, feats, aux)
@@ -233,15 +246,23 @@ def run_app(
     a checkpoint unit of the flat engine's train Gram (the JAX CLIs' slab:
     64 for the fast kernels, 16 otherwise).
     """
+    if mesh is None:
+        initialize()
+        mesh = resolve_mesh(opts.devices)
+    if mesh is not None and not mesh.member:
+        print(f"rank {mesh.rank}: outside the {mesh.size} ranks of --devices; "
+              "nothing to do", file=sys.stderr)
+        return
     with device_profile(opts.trace_dir, device):
         _run_app_inner(opts, featurize, make_kernel_fn, device=device,
                        batch_size=batch_size, log_kernel=log_kernel,
                        featurize_buckets=featurize_buckets, merge_aux=merge_aux,
-                       slab_batches=slab_batches)
+                       slab_batches=slab_batches, mesh=mesh)
 
 
 def _run_app_inner(opts, featurize, make_kernel_fn, *, device, batch_size, log_kernel,
-                   featurize_buckets, merge_aux, slab_batches) -> None:
+                   featurize_buckets, merge_aux, slab_batches, mesh) -> None:
+    io_rank = process_zero()  # rank-0 I/O (framework.h:135-163)
     t_start = time.time()
     counts: list[int] | None = [] if opts.use_pf_scale_file else None
     train_alns, train_labels = load_labeled(opts.labels, opts.files, counts_out=counts)
@@ -254,15 +275,16 @@ def _run_app_inner(opts, featurize, make_kernel_fn, *, device, batch_size, log_k
             g = bucketed_gram(featurize_buckets(train_alns), make_kernel_fn,
                               device=device, normalize=opts.normalize,
                               batch_size=batch_size, log_values=log_kernel,
-                              checkpoint_path=opts.checkpoint or None)
+                              checkpoint_path=opts.checkpoint or None, mesh=mesh)
         else:
             feats, aux = featurize(train_alns)
             eng = PairKernelEngine(make_kernel_fn(aux), feats, device=device,
                                    batch_size=batch_size, slab_batches=slab_batches,
-                                   log_values=log_kernel)
+                                   log_values=log_kernel, mesh=mesh)
             g = eng.gram(normalize=opts.normalize,
                          checkpoint_path=opts.checkpoint or None)
-        write_precomputed(opts.output, train_labels, g)
+        if io_rank:
+            write_precomputed(opts.output, train_labels, g)
         print(f"elapsed time: {time.time()-t_start:.1f}s", file=sys.stderr)
         return
 
@@ -280,7 +302,7 @@ def _run_app_inner(opts, featurize, make_kernel_fn, *, device, batch_size, log_k
 
     train_feats, aux_tr = featurize(train_alns)
     eng = PairKernelEngine(make_kernel_fn(aux_tr), train_feats, device=device,
-                           batch_size=batch_size, log_values=log_kernel)
+                           batch_size=batch_size, log_values=log_kernel, mesh=mesh)
     diag = eng.diagonal(sv_index=sv_index)
 
     chunk = max(1, int(opts.stream_chunk or 64))
@@ -315,14 +337,14 @@ def _run_app_inner(opts, featurize, make_kernel_fn, *, device, batch_size, log_k
                  else np.zeros((0, len(train_alns)), np.float32))
     self_vals = (np.concatenate(all_self) if all_self else np.zeros((0,), np.float64))
 
-    if not opts.predict_only:
+    if not opts.predict_only and io_rank:
         with _open_write(opts.output) as f:
             write_rows(f, test_labels, norm_rows)
-    if opts.norm_output:
+    if opts.norm_output and io_rank:
         write_norm(opts.norm_output, self_vals)
 
     outs = opts.predict_outputs or [f"{opts.output}.pred{i}" for i in range(len(models))]
-    for model, out_path in zip(models, outs):
+    for model, out_path in zip(models if io_rank else [], outs):
         with open(out_path, "w") as f:
             for t, label in enumerate(test_labels):
                 if model.prob_A is not None:

@@ -23,11 +23,9 @@ from ..models.bpla import DEFAULT_BPLA_SCORE_TABLE, BPLAKernel
 from ..models.featurize import bpla_features
 from ..ops import full_f32
 from .app import (
-    NOT_YET_PORTED,
     add_common_options,
     parse_args_with_positionals,
     parse_positional,
-    reject_unported,
     resolve_device,
     run_app,
 )
@@ -70,7 +68,6 @@ def main(argv=None) -> int:
     full_f32()  # plain f32 products stay f32 on the card
     p = build_parser()
     ns = parse_args_with_positionals(p, argv)
-    reject_unported(p, ns, NOT_YET_PORTED)
     device = resolve_device(ns.device)
     opts = parse_positional(ns)
     score_table = read_score_table(ns.score) if ns.score else None

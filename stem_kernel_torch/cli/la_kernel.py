@@ -24,11 +24,9 @@ from ..models.bpla import la_score_matrix, local_alignment_max, pair_mask
 from ..ops import full_f32
 from ..ops.la import la_exp_auto
 from .app import (
-    NOT_YET_PORTED,
     add_common_options,
     parse_args_with_positionals,
     parse_positional,
-    reject_unported,
     resolve_device,
     run_app,
 )
@@ -51,7 +49,6 @@ def main(argv=None) -> int:
     full_f32()  # plain f32 products stay f32 on the card
     p = build_parser()
     ns = parse_args_with_positionals(p, argv)
-    reject_unported(p, ns, NOT_YET_PORTED)
     device = resolve_device(ns.device)
     opts = parse_positional(ns)
     table = torch.as_tensor(BLOSUM62, device=device)

@@ -24,11 +24,9 @@ from ..models.featurize import loop_profile_weights, string_kernel_features
 from ..models.string_kernel import StringKernel
 from ..ops import full_f32
 from .app import (
-    NOT_YET_PORTED,
     add_common_options,
     parse_args_with_positionals,
     parse_positional,
-    reject_unported,
     resolve_device,
     run_app,
 )
@@ -63,7 +61,6 @@ def main(argv=None) -> int:
     full_f32()
     p = build_parser()
     ns = parse_args_with_positionals(p, argv)
-    reject_unported(p, ns, NOT_YET_PORTED)
     device = resolve_device(ns.device)
     opts = parse_positional(ns)
     bp_opts = fold_opts_from(ns)

@@ -29,11 +29,9 @@ from ..models.phmm import posterior_windows
 from ..ops import full_f32
 from ..ops.full_stem_banded import full_stem_banded_log
 from .app import (
-    NOT_YET_PORTED,
     add_common_options,
     parse_args_with_positionals,
     parse_positional,
-    reject_unported,
     resolve_device,
     run_app,
 )
@@ -63,7 +61,6 @@ def main(argv=None) -> int:
     full_f32()  # plain f32 products stay f32 on the card
     p = build_parser()
     ns = parse_args_with_positionals(p, argv)
-    reject_unported(p, ns, NOT_YET_PORTED)
     device = resolve_device(ns.device)
     opts = parse_positional(ns)
 

@@ -25,11 +25,9 @@ from ..models.composite import (
 )
 from ..ops import full_f32
 from .app import (
-    NOT_YET_PORTED,
     add_common_options,
     parse_args_with_positionals,
     parse_positional,
-    reject_unported,
     resolve_device,
     run_app,
 )
@@ -135,7 +133,6 @@ def main(argv=None) -> int:
     if ns.coarse_shapes:
         p.error("--coarse-shapes bounds TPU compile counts and is not part of "
                 "stem_kernel_torch")
-    reject_unported(p, ns, NOT_YET_PORTED)
     device = resolve_device(ns.device)
     opts = parse_positional(ns)
     config = StemLiteConfig(

@@ -20,11 +20,9 @@ from ..models.featurize import plain_string_features
 from ..models.string_kernel import plain_string_kernel
 from ..ops import full_f32
 from .app import (
-    NOT_YET_PORTED,
     add_common_options,
     parse_args_with_positionals,
     parse_positional,
-    reject_unported,
     resolve_device,
     run_app,
 )
@@ -44,7 +42,6 @@ def main(argv=None) -> int:
     full_f32()
     p = build_parser()
     ns = parse_args_with_positionals(p, argv)
-    reject_unported(p, ns, NOT_YET_PORTED)
     device = resolve_device(ns.device)
     opts = parse_positional(ns)
     gap = ns.gap

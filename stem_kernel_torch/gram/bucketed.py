@@ -16,7 +16,13 @@ from typing import Callable, Mapping
 import numpy as np
 import torch
 
-from .engine import PairKernelEngine, _exp_to_f32_checked, normalize_gram, to_device
+from .engine import (
+    PairKernelEngine,
+    _exp_to_f32_checked,
+    normalize_gram,
+    refuse_checkpoint_across_ranks,
+    to_device,
+)
 
 # bucket: (global example indices, stacked features, aux e.g. iteration bound)
 Bucket = tuple[np.ndarray, Mapping[str, torch.Tensor], object]
@@ -32,6 +38,7 @@ def bucketed_gram(
     log_values: bool = False,
     merge_aux: Callable[[object, object], object] = max,
     checkpoint_path: str | None = None,
+    mesh=None,
 ) -> np.ndarray:
     """Full N x N Gram from bucketed features.
 
@@ -42,8 +49,11 @@ def bucketed_gram(
     ``checkpoint_path``: directory of per-block checkpoints ``block_{p}_{q}``
     in the engine's units (gram.checkpoint); a restarted run skips every
     completed unit of every block.
+
+    ``mesh``: the ranks that share each block's batches (parallel.mesh).
     """
     if checkpoint_path is not None:
+        refuse_checkpoint_across_ranks(mesh)
         os.makedirs(checkpoint_path, exist_ok=True)
     n = sum(len(idx) for idx, _, _ in buckets)
     g = np.zeros((n, n), dtype=np.float32)
@@ -52,7 +62,7 @@ def bucketed_gram(
             idx_q, feats_q, aux_q = buckets[q]
             eng = PairKernelEngine(make_kernel_fn(merge_aux(aux_p, aux_q)), feats_p,
                                    device=device, batch_size=batch_size,
-                                   log_values=log_values)
+                                   log_values=log_values, mesh=mesh)
             ckpt = None
             if checkpoint_path is not None:
                 n_pairs = (len(idx_p) * (len(idx_p) + 1) // 2 if p == q

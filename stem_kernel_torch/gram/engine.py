@@ -1,4 +1,4 @@
-"""Batched pairwise Gram-matrix computation on one device.
+"""Batched pairwise Gram-matrix computation, on one device or across ranks.
 
 Port of ``stem_kernel_tpu/gram/engine.py`` (the reference's KernelMatrix
 engine, stem_kernel/common/kernel_matrix.{h,cpp}):
@@ -6,6 +6,9 @@ engine, stem_kernel/common/kernel_matrix.{h,cpp}):
 - the upper-triangle pair loop becomes a flat pair-index array evaluated in
   batches by a Python loop; each batch gathers its examples' features on
   the device with ``index_select`` and runs the batched kernel;
+- with a mesh (parallel.mesh), each rank runs every W-th batch on its own
+  GPU and an all-gather hands every rank all the values (the reference's
+  MPI rank striding, kernel_matrix.cpp:199-261);
 - example features live on the device once; only pair indices go in and
   one result vector comes back, at the end of the pass;
 - cosine normalization K'ij = Kij / sqrt(Kii*Kjj) (kernel_matrix.cpp:560-571),
@@ -24,6 +27,9 @@ from typing import Callable, Mapping
 
 import numpy as np
 import torch
+
+from ..parallel.distributed import gather_pair_values
+from ..parallel.mesh import shard_pairs
 
 Features = Mapping[str, torch.Tensor]
 # kernel_fn(x_batch, y_batch) -> (B,) kernel values; x/y are feature dicts
@@ -53,6 +59,18 @@ def normalize_gram(g: np.ndarray) -> np.ndarray:
     return g / np.outer(d, d)
 
 
+def refuse_checkpoint_across_ranks(mesh) -> None:
+    """Gram checkpoints are per process: refuse one on a mesh of several
+    ranks.  Every rank must run the same gathers in the same order, which
+    per-rank checkpoint skips would break, and the ranks would truncate each
+    other's files."""
+    if mesh is not None and mesh.size > 1:
+        raise ValueError(
+            "Gram checkpointing is per-process; it cannot be combined with a mesh "
+            "that spans several torch.distributed ranks — run checkpointed Grams "
+            "on one rank (one process, or --single-device) or drop --checkpoint")
+
+
 def to_device(features: Mapping, device) -> dict[str, torch.Tensor]:
     """Feature tensors on ``device`` (numpy arrays are converted)."""
     return {k: torch.as_tensor(v, device=device) for k, v in features.items()}
@@ -66,11 +84,13 @@ class PairKernelEngine:
     takes two gathered feature dicts (leading batch axis B) and returns (B,).
     ``log_values``: kernel_fn returns log K; gram() then normalizes in log
     space, exp(Lij - (Lii + Ljj)/2), which is exact and overflow-safe.
+    ``mesh``: a parallel.mesh.Mesh; this rank runs its share of every pair
+    list's batches on ``device`` and every rank gets all the values.
     """
 
     def __init__(self, kernel_fn: KernelFn, features: Mapping, *, device,
                  batch_size: int = 256, slab_batches: int = 16,
-                 log_values: bool = False) -> None:
+                 log_values: bool = False, mesh=None) -> None:
         """``slab_batches``: batches in a checkpoint unit (the JAX engine's
         slab); it changes nothing without a checkpoint."""
         if batch_size < 1:
@@ -80,6 +100,7 @@ class PairKernelEngine:
         self.batch_size = batch_size
         self._slab_batches = max(1, slab_batches)
         self.log_values = log_values
+        self.mesh = mesh
         self.features = to_device(features, self.device)
         self.n = next(iter(self.features.values())).shape[0]
 
@@ -104,29 +125,43 @@ class PairKernelEngine:
         ``checkpoint_for``), a completed unit is loaded instead of
         recomputed, and each fresh unit is copied to the host and stored
         durably as soon as it is done.  Without one, nothing waits for the
-        device until the end of the pass.
+        device until the end of the pass.  With a mesh, this rank runs the
+        batches ``shard_pairs`` gives it and gathers the rest.
         """
+        if checkpoint is not None:
+            refuse_checkpoint_across_ranks(self.mesh)
         feats_x = self.features if feats_x is None else feats_x
         feats_y = self.features if feats_y is None else feats_y
-        n_pairs = len(ix)
-        out = torch.empty(n_pairs, dtype=torch.float32, device=self.device)
+        n_pairs, bs = len(ix), self.batch_size
         ix_t = torch.as_tensor(np.asarray(ix, np.int64), device=self.device)
         iy_t = torch.as_tensor(np.asarray(iy, np.int64), device=self.device)
 
-        def run(lo: int, hi: int) -> None:
-            for s in range(lo, hi, self.batch_size):
-                bix = ix_t[s: min(s + self.batch_size, hi)]
-                biy = iy_t[s: min(s + self.batch_size, hi)]
-                x = {k: v.index_select(0, bix) for k, v in feats_x.items()}
-                y = {k: v.index_select(0, biy) for k, v in feats_y.items()}
-                out[s: s + len(bix)] = self.kernel_fn(x, y)
+        def batch(lo: int, hi: int) -> torch.Tensor:
+            x = {k: v.index_select(0, ix_t[lo:hi]) for k, v in feats_x.items()}
+            y = {k: v.index_select(0, iy_t[lo:hi]) for k, v in feats_y.items()}
+            return self.kernel_fn(x, y)
+
+        n_batches = -(-n_pairs // bs)
+        first = 0 if self.mesh is None else self.mesh.deal(n_batches)
+        mine = shard_pairs(self.mesh, n_batches, first)
+        buf = torch.zeros(len(mine) * bs, dtype=torch.float32, device=self.device)
+
+        def run(slots: range) -> None:
+            """Fill slot k of the buffer with batch mine[k]."""
+            for k in slots:
+                lo = mine[k] * bs
+                hi = min(lo + bs, n_pairs)
+                buf[k * bs: k * bs + hi - lo] = batch(lo, hi)
 
         if checkpoint is None:
-            run(0, n_pairs)
-            return out.cpu().numpy()
+            run(range(len(mine)))
+            if self.mesh is None:
+                return buf[:n_pairs].cpu().numpy()
+            return gather_pair_values(buf.cpu().numpy(), n_pairs, bs, self.mesh, first)
         if checkpoint.n_pairs != n_pairs:
             raise ValueError(f"checkpoint {checkpoint.path} holds {checkpoint.n_pairs} "
                              f"pairs, not {n_pairs}")
+        # one rank runs every batch here, so slot k holds batch k
         host = np.empty(n_pairs, dtype=np.float32)
         unit = checkpoint.batch_size
         for u in range(checkpoint.n_batches):
@@ -134,8 +169,8 @@ class PairKernelEngine:
             if checkpoint.is_done(u):
                 host[lo:hi] = checkpoint.load_batch(u)
                 continue
-            run(lo, hi)
-            host[lo:hi] = out[lo:hi].cpu().numpy()
+            run(range(lo // bs, -(-hi // bs)))
+            host[lo:hi] = buf[lo:hi].cpu().numpy()
             checkpoint.store_batch(u, host[lo:hi])
         return host
 
@@ -150,6 +185,7 @@ class PairKernelEngine:
         blocks is rejected instead of returning stale values."""
         from .checkpoint import TileCheckpoint, features_fingerprint
 
+        refuse_checkpoint_across_ranks(self.mesh)
         n = self.n if n is None else n
         total = n * (n + 1) // 2 if n_pairs is None else n_pairs
         sb = self._slab_size(-(-total // self.batch_size))

@@ -21,6 +21,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..parallel.distributed import world
+
 TRACE_FILE = "trace.json"
 
 
@@ -48,11 +50,20 @@ class StageTimer:
             print(line, file=out)
 
 
+def trace_file() -> str:
+    """This process's trace file name: ``trace.json``, or on rank r > 0 of a
+    process group ``trace_rank{r}.json``, so ranks that share a directory do
+    not overwrite one file (JAX's profiler writes one file per host)."""
+    rank, _ = world()
+    return TRACE_FILE if rank == 0 else f"trace_rank{rank}.json"
+
+
 @contextlib.contextmanager
 def device_profile(log_dir: str | None, device=None):
     """Trace a block with torch.profiler into ``log_dir/trace.json`` (Chrome
-    trace format): CPU activity, and CUDA activity when ``device`` is a CUDA
-    device.  An empty ``log_dir`` traces nothing."""
+    trace format; ``trace_file`` names it on ranks past 0): CPU activity,
+    and CUDA activity when ``device`` is a CUDA device.  An empty
+    ``log_dir`` traces nothing."""
     if not log_dir:
         yield
         return
@@ -68,7 +79,7 @@ def device_profile(log_dir: str | None, device=None):
         yield
     finally:
         prof.stop()
-        prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))
+        prof.export_chrome_trace(os.path.join(log_dir, trace_file()))
 
 
 def dag_memory_probe(dags) -> dict[str, float]:

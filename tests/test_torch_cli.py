@@ -154,12 +154,25 @@ def test_device_cuda_without_gpu_raises(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", [["--devices", "2"], ["--single-device"], ["--coarse-shapes"]])
 def test_unported_options_are_rejected(tmp_path, flag, capsys):
+    """--coarse-shapes, a TPU compile-count option, is a usage error.  In one
+    process, --devices 2 raises, naming the torchrun launch of two ranks,
+    and --single-device writes the matrix of the run without it."""
     p = _data(tmp_path, n=1)
-    with pytest.raises(SystemExit) as exc:
-        t_cli.main(["--device", "cpu", *flag, "-n", str(tmp_path / "k.dat"),
-                    "+1", p["pos"], "-1", p["neg"]])
-    assert exc.value.code == 2
-    assert flag[0] in capsys.readouterr().err
+    args = ["+1", p["pos"], "-1", p["neg"]]
+    out = str(tmp_path / "k.dat")
+    if flag == ["--coarse-shapes"]:
+        with pytest.raises(SystemExit) as exc:
+            t_cli.main(["--device", "cpu", *flag, "-n", out, *args])
+        assert exc.value.code == 2
+        assert flag[0] in capsys.readouterr().err
+    elif flag == ["--devices", "2"]:
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+            t_cli.main(["--device", "cpu", *flag, "-n", out, *args])
+    else:
+        plain = str(tmp_path / "plain.dat")
+        assert t_cli.main(["--device", "cpu", *flag, "-n", out, *args]) == 0
+        assert t_cli.main(["--device", "cpu", "-n", plain, *args]) == 0
+        assert open(out, "rb").read() == open(plain, "rb").read()
 
 
 @pytest.mark.parametrize("log_values", [False, True])
@@ -198,6 +211,7 @@ OPTION_CASES = {
     "no_string": ["--no-string"],
     "fast_fold": ["--fast-fold"],
     "noGU_noLonelyPairs": ["--noGU", "--noLonelyPairs"],
+    "log_no_ribosum": ["--log", "--no-ribosum"],
     "p_length_band": ["-p", "0.1", "--length-band", "0"],
 }
 
@@ -250,3 +264,28 @@ def test_svm_tools_match_jax_svm_tools(tmp_path, svm_type):
         outs[tag] = (open(model, "rb").read(), open(pred, "rb").read())
     assert outs["t"] == outs["j"]
     assert len(outs["t"][1].splitlines()) == 6
+
+
+@pytest.mark.parametrize("svm_type", [0, 1])
+def test_svm_tools_probability_matches_jax_svm_tools(tmp_path, svm_type):
+    """svm_tools train and predict with -b 1 (probability estimates) for
+    C-SVC and nu-SVC: model and prediction files byte-equal, both packages
+    on their native SMO."""
+    from stem_kernel_torch.gram.io import write_precomputed, write_rows
+    from stem_kernel_tpu.cli import svm_tools as j_svm
+
+    rng = np.random.default_rng(30 + svm_type)
+    x = rng.normal(size=(46, 3))
+    k = np.exp(-0.5 * ((x[:, None] - x[None]) ** 2).sum(-1))
+    labels = ["+1" if v > 0 else "-1" for v in x[:, 0] + 0.3 * x[:, 1] + 0.3 * rng.normal(size=46)]
+    train, test = str(tmp_path / "k.dat"), str(tmp_path / "rows.dat")
+    write_precomputed(train, labels[:40], k[:40, :40])
+    write_rows(test, labels[40:], k[40:, :40])
+    outs = {}
+    for tag, mod in (("t", svm_tools), ("j", j_svm)):
+        model, pred = str(tmp_path / f"{tag}.model"), str(tmp_path / f"{tag}.pred")
+        assert mod.train_main(["-s", str(svm_type), "-b", "1", train, model]) == 0
+        assert mod.predict_main(["-b", "1", test, model, pred]) == 0
+        outs[tag] = (open(model, "rb").read(), open(pred, "rb").read())
+    assert outs["t"] == outs["j"]
+    assert b"probA" in outs["t"][0] and len(outs["t"][1].splitlines()) == 6

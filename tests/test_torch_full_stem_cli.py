@@ -115,12 +115,18 @@ def test_device_cuda_without_gpu_raises(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("flag", [["--devices", "2"], ["--single-device"]])
 def test_unported_options_are_rejected(tmp_path, flag, capsys):
+    """In one process, --devices 2 raises, naming the torchrun launch of two
+    ranks, and --single-device writes the matrix of the run without it."""
     p = _files(tmp_path, TRAIN)
-    with pytest.raises(SystemExit) as exc:
-        t_cli.main(["--device", "cpu", *flag, "-n", str(tmp_path / "k.dat"),
-                    "+1", p["pos"], "-1", p["neg"]])
-    assert exc.value.code == 2
-    assert flag[0] in capsys.readouterr().err
+    args = ["--device", "cpu", "-b", "6"]
+    out, plain = str(tmp_path / "k.dat"), str(tmp_path / "plain.dat")
+    if flag == ["--devices", "2"]:
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+            _train(t_cli.main, [*args, *flag], out, p)
+        return
+    _train(t_cli.main, [*args, *flag], out, p)
+    _train(t_cli.main, args, plain, p)
+    assert open(out, "rb").read() == open(plain, "rb").read()
 
 
 @pytest.mark.cuda
