@@ -8,17 +8,18 @@ Phases (the first failure exits non-zero; nothing is caught):
 
 1. environment: the card's name and power limit (nvidia-smi), CUDA, TF32 off;
 2. build: the CUDA library from ``stem_kernel_torch/csrc``, and the
-   registers, spills and barriers ptxas gave K1's cluster kernels;
+   registers, spills and barriers ptxas gave K1's cluster and strip kernels;
 3. K1 parity: the closure fixed point through its wrapper in each product
    mode ("highest" f32, "high" 3xTF32, "default" bf16) against its plain
-   torch version in the mode of the route the wrapper takes (the cluster
-   kernel up to 128 nodes; the per-product kernel, f32 for every name,
-   past it and for 64 x 128 in 3xTF32), on real DAG features of the corpus
-   (B=256 pairs within the most populous node bucket, across it and the
-   next, and across the smallest and it, as the Gram's cross-bucket blocks
-   run them; true per-pair trip counts) and on random operands of 64 nodes
-   (a one-CTA cluster), 112 x 48 (a padded rectangular cluster), 256 and
-   320 x 288 nodes: every mode within rel 1e-4; bf16 also at least 10x
+   torch version in the same mode, on both routes (``cluster_route``: the
+   cluster kernel, the per-product route's strip kernel), on real DAG
+   features of the corpus (B=256 pairs within the most populous node
+   bucket, across it and the next, and across the smallest and it, as the
+   Gram's cross-bucket blocks run them; true per-pair trip counts) and on
+   random operands of 64 and 40 x 56 nodes (the cluster kernel, padded and
+   rectangular), 112 x 48 (the strip kernel, padded and rectangular), 256,
+   320 x 288 (the 3xTF32 strip spilled to device memory) and 528 x 96 nodes
+   (the strip spilled in every mode): every mode within rel 1e-4; bf16 also at least 10x
    nearer plain bf16 than plain f32; each mode's error against the plain f32
    version is printed, and "high" must stay within JAX "high"'s own 9.0e-4
    of f32;
@@ -30,13 +31,17 @@ Phases (the first failure exits non-zero; nothing is caught):
    predictions written; a small subset is rerun with ``--device cpu`` (the
    plain versions): the two Grams must agree within the 1.4e-2 CLI band and
    the two folds within 5e-4 BPP;
-5. K1 times in the three modes against the plain f32 version (CUDA events;
-   B=256, N=128), with each mode's bound on its unit and the cluster
-   geometry; every block shape of the stem Gram on both routes (the cluster
-   kernel in each mode where it can run, beside the per-product kernel: the
-   times that place the wrapper's cut-over); the per-product kernel against
-   the plain f32 version at the shape it takes most often on the path; and
-   the stem path's fold, Gram and flow rates (synchronized host clocks);
+5. every block shape of the stem Gram on the per-product route in each mode
+   (beside the cluster kernel up to 64 nodes, where it runs: the times that
+   place the wrapper's cut-over) and the library chains below; each route in the three modes at the shape
+   it takes most often on the path (CUDA events; B=256), against the plain
+   f32 version, with its device time (CUDA graph), its bound on the mode's
+   unit, its geometry and the library chain (the same pair-trips' products
+   through torch.bmm, each pair for its own trips, the batch shrinking as
+   pairs finish: f32 with TF32 off, checked against the plain version, bf16
+   tensors beside "default", a TF32 chain beside "high" as a one-pass
+   reference); and the
+   stem path's fold, Gram and flow rates (synchronized host clocks);
 6. LA parity: K2-K5 against their plain versions at the shapes of the paths
    below, each square and Lx != Ly (BPLA factors of the folded corpus at
    L=120 and random factors at L=400 for K2; random-profile factors at
@@ -140,7 +145,7 @@ Phases (the first failure exits non-zero; nothing is caught):
    half of the largest bucket block's units cleared (fewer launches than
    the full run, the same Gram); ``bpla_kernel -n --checkpoint``: phase 7's
    Gram bit for bit; (d) ``--trace-dir`` on 20 + 20 sequences: the trace
-   holds device events of K1's cluster kernel, the Gram equals the
+   holds device events of each K1 route the run launched, the Gram equals the
    untraced run's; (e) the stem train and predict flows' walls with the
    featurize stage apart (``StageTimer``), on the native and on the Python
    scan, beside phase 4's walls; (f) the unnormalised ``bpla_optimizer
@@ -197,8 +202,8 @@ time and its bound: the larger of the bytes it must move over 3.35 TB/s and
 the operations this run's inputs need over the peak of the unit that runs
 them, 67 TFLOP/s f32, 495 TFLOP/s TF32 (three passes for 3xTF32) or 989
 TFLOP/s bf16 (the H100 SXM's published peaks).  K1 has two entries, one a
-route: the cluster kernel in the main path's mode, "high", and the
-per-product kernel (f32).  ``ms`` is CUDA events around repeated wrapper
+route, each in the main path's mode, "high", at its busiest shape; their
+``library_ms`` is the f32 torch.bmm chain, K2-K6's null.  ``ms`` is CUDA events around repeated wrapper
 calls, host time between launches included; ``device_ms`` the same calls
 captured in a CUDA graph and replayed under CUDA events, except K6's: its
 wrapper reads max(lx) on the host, so its ``device_ms`` is the summed time
@@ -682,6 +687,47 @@ def k1_bound(args: list, max_iters: int, mode: str = "f32") -> tuple[float, str]
     t_ops = products / peak + elementwise / PEAK_F32
     t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k1_chain(ops: list, active: list) -> torch.Tensor:
+    """K1's function as the library computes it, each pair for its own trip
+    count: ``ops`` are the eight operands (any dtype), the pairs sorted by
+    trips, most first, and ``active[k]`` the pairs that take trip k.  A
+    trip's four products run on those pairs only, through torch.bmm and
+    torch.baddbmm (+ L in the product's epilogue), and NS * (.) writes
+    into M's rows in place; the first trip skips M Vy^T (M = 0), as the
+    kernels do.  Then ux^T M uy."""
+    ns, vx, vy, ax, ay, l, ux, uy = ops
+    vyt, ayt = vy.transpose(1, 2), ay.transpose(1, 2)
+    m = torch.zeros_like(ns)
+    for k, n in enumerate(active):
+        s = l[:n] if k == 0 else torch.baddbmm(l[:n], m[:n], vyt[:n])
+        g = torch.bmm(vx[:n], s)
+        torch.mul(ns[:n], torch.bmm(ax[:n], torch.bmm(g, ayt[:n])), out=m[:n])
+    return torch.einsum("bi,bij,bj->b", ux, m, uy)
+
+
+def chain_ms(args: list, max_iters: int, dtype=torch.float32,
+             tf32: bool = False) -> tuple[float, torch.Tensor]:
+    """(ms a call of :func:`k1_chain` (CUDA events), its values in f32 in
+    the pairs' order) on K1 operands ``args`` cast to ``dtype``, with TF32
+    products (``allow_tf32``) where ``tf32``.  Sorting the pairs by trips
+    and their trip table are set-up, not timed."""
+    trips = torch.clamp(args[-1], max=max_iters)
+    order = torch.argsort(trips, descending=True)
+    ranked = trips[order].tolist()
+    active = [sum(1 for t in ranked if t > k) for k in range(ranked[0] if ranked else 0)]
+    ops = [t.index_select(0, order).to(dtype) for t in args[:-1]]
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        vals = k1_chain(ops, active)
+        ms = cuda_ms(lambda: k1_chain(ops, active), 2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    out = torch.empty(len(ranked), device=vals.device, dtype=torch.float32)
+    out[order] = vals.float()
+    return ms, out
 
 
 def k1_random(bsz: int, nx: int, ny: int, max_iters: int, seed: int, dev) -> list:
@@ -1778,19 +1824,25 @@ def slice5_phase(dev, smi: str, reset_counts, counts, corpus: tuple, stem: dict,
     run_cli(stem_kernel_lite.main, ["--device", "cuda", "-n", "--trace-dir", p("trace"),
                                     p("traced.dat"), *small])
     traced_s = time.perf_counter() - t0
-    launches = stem_fixed_point.launches
+    launches = {"cluster": stem_fixed_point.launches,
+                "per-product": stem_fixed_point.launches_wide}
     with open(os.path.join(p("trace"), TRACE_FILE)) as f:
         events = json.load(f)["traceEvents"]
-    cluster = [e for e in events if e.get("cat") == "kernel"
-               and "fixed_point_cluster" in e.get("name", "")]
+    k1_events = {r: [e for e in events if e.get("cat") == "kernel" and kern in e.get("name", "")]
+                 for r, kern in (("cluster", "fixed_point_cluster"),
+                                 ("per-product", "fixed_point_strips"))}
     same = np.array_equal(read_precomputed(p("traced.dat"))[1],
                           read_precomputed(p("untraced.dat"))[1])
     print(f"stem_kernel_lite -n --trace-dir, {2 * TRACE_N} sequences: {traced_s:.2f} s "
-          f"(untraced {untraced_s:.2f} s), "
-          f"{len(events)} trace events, {len(cluster)} device events of K1's cluster kernel "
-          f"({cluster[0]['name'] if cluster else 'none'}), {launches} cluster launches counted; "
-          f"Gram equal to the untraced run's: {same}")
-    check(launches > 0 and len(cluster) > 0, "the trace holds no K1 cluster kernel events")
+          f"(untraced {untraced_s:.2f} s), {len(events)} trace events; K1 device events and "
+          f"launches counted by route: "
+          + "; ".join(f"{r} {len(ev)} ({ev[0]['name'] if ev else 'none'}), {launches[r]} "
+                      f"launches" for r, ev in k1_events.items())
+          + f"; Gram equal to the untraced run's: {same}")
+    check(sum(launches.values()) > 0, "the traced run launched no K1 kernel")
+    for r, n_launches in launches.items():
+        check(n_launches == 0 or len(k1_events[r]) > 0,
+              f"the trace holds no device events of K1's {r} route, which ran")
     check(same, "the traced Gram differs from the untraced one")
 
     # (e) the flows' walls with the featurize stage apart, on the native and
@@ -1949,8 +2001,10 @@ def rank_jobs(f: dict, out: str = "") -> list:
 
 
 # the kernels each job of phase 21 must launch on both ranks (--SW: none,
-# the max-plus DP is plain torch, as it is plain XLA in the JAX package)
-RANK_JOB_KERNELS = (("K1", "K1w"), ("K1w",), ("K2",), (), ("K3",), ("K4",), ("K6",))
+# the max-plus DP is plain torch, as it is plain XLA in the JAX package; the
+# stem train flow launches K1's cluster kernel once, on its one block of
+# pairs up to 64 nodes, so one rank only: the split check holds it)
+RANK_JOB_KERNELS = (("K1w",), ("K1w",), ("K2",), (), ("K3",), ("K4",), ("K6",))
 
 
 def run_job(cli: str, argv: list, reset_counts, counts) -> dict:
@@ -2160,9 +2214,8 @@ def main() -> int:
         full_stem_banded_log, full_stem_banded_log_reference,
     )
     from stem_kernel_torch.ops.stem_fixed_point import (
-        MAX_CLUSTER_NODES, MODES, cluster_info, cluster_kernel, cluster_route,
-        per_product_route, stem_fixed_point,
-        stem_fixed_point_reference,
+        MODES, cluster_info, cluster_kernel, cluster_route, per_product_route, stem_fixed_point,
+        stem_fixed_point_reference, strips_info,
     )
     from stem_kernel_torch.utils.shuffle import dinucleotide_shuffle
 
@@ -2182,14 +2235,16 @@ def main() -> int:
     # ---- 2. build ----
     _, build_s = build()
     print(f"build: {build_s:.1f} s")
-    # K1's cluster kernels: <mode, m16 count>, mode 0 f32, 1 3xTF32, 2 bf16
+    # K1's kernels: cluster <mode, m16 count>, strips <mode, spill>; mode 0
+    # f32, 1 3xTF32, 2 bf16
     log = (BUILD_DIR / PTXAS_LOG).read_text().split("Compiling entry function")
     for entry in log[1:]:
-        if "fixed_point_clusterILi" in entry.splitlines()[0]:
-            mode_mt = entry.split("fixed_point_clusterILi")[1].split("EEE")[0].replace("ELi", ", ")
-            use = [ln.split(":")[-1].strip() if "Used" in ln else ln.strip()
-                   for ln in entry.splitlines() if "spill" in ln or "Used" in ln]
-            print(f"ptxas, K1 cluster kernel <{mode_mt}>: {'; '.join(use)}")
+        for kern, label in (("fixed_point_clusterILi", "cluster"), ("fixed_point_stripsILi", "strip")):
+            if kern in entry.splitlines()[0]:
+                targs = entry.split(kern)[1].split("EEE")[0].replace("ELb", ", ").replace("ELi", ", ")
+                use = [ln.split(":")[-1].strip() if "Used" in ln else ln.strip()
+                       for ln in entry.splitlines() if "spill" in ln or "Used" in ln]
+                print(f"ptxas, K1 {label} kernel <{targs}>: {'; '.join(use)}")
 
     # ---- data ----
     rng = np.random.default_rng(SEED)
@@ -2233,57 +2288,67 @@ def main() -> int:
     for bx, by in blocks:
         cases.append((f"corpus B={K1_BATCH} Nx={bx[1]['V'].shape[1]} Ny={by[1]['V'].shape[1]}",
                       *corpus_block(bx, by)))
-    # shapes the corpus blocks above may not reach: one CTA a pair, a
-    # rectangular padded cluster in every mode, 256 nodes, and past 256
-    for bsz, nx, ny, seed in ((64, 64, 64, 11), (64, 112, 48, 14), (64, 256, 256, 12),
-                              (16, 320, 288, 13)):
+    # shapes the corpus blocks above may not reach: the cluster kernel at 64
+    # and on a rectangular padded pair, the strip kernel on a rectangular
+    # padded pair, at 256 nodes, past 256 (the strip spills in 3xTF32) and
+    # at Nx = 528 (the strip spills in every mode)
+    for bsz, nx, ny, seed in ((64, 64, 64, 11), (64, 40, 56, 15), (64, 112, 48, 14),
+                              (64, 256, 256, 12), (16, 320, 288, 13), (4, 528, 96, 16)):
         cases.append((f"random B={bsz} Nx={nx} Ny={ny}", k1_random(bsz, nx, ny, 20, seed, dev), 20))
+    for prec in MODES:
+        check(strips_info(528, 96, prec)["spill"] == 1, f"the {prec} strip at Nx=528 stayed")
+    check(strips_info(320, 288, "high")["spill"] == 1, "the high strip at 320 x 288 stayed")
     report = {"K1": {"max_abs_err": 0.0, "max_rel_err": 0.0},
               "K1w": {"max_abs_err": 0.0, "max_rel_err": 0.0}}
-    k1_modes = {}  # mode -> (max rel against its plain version, max rel against f32)
-    for label, case_args, case_iters in cases:
+    k1_modes = {}  # (route, precision) -> (max rel against its plain version, against f32)
+
+    def k1_parity(label, case_args, case_iters, prec, run, rname):
+        """Check one K1 result against the plain version in the mode ``prec`` names."""
+        mode = MODES[prec]
         f32 = stem_fixed_point_reference(*case_args, max_iters=case_iters)
+        got = run()
+        torch.cuda.synchronize()
+        want = stem_fixed_point_reference(*case_args, max_iters=case_iters, mode=mode)
+        check(bool(torch.isfinite(got).all()), f"K1 {label} {prec}: kernel output not finite")
+        rel, rel_f32 = k1_rel(got, want), k1_rel(got, f32)
+        zero = bool((got[case_args[-1] == 0] == 0).all())
+        print(f"K1 parity, {label}, {rname}, {prec} ({mode}): trip counts "
+              f"{int(case_args[-1].min())}..{int(case_args[-1].max())}: max abs "
+              f"{float((got - want).abs().max()):.3e} max rel {rel:.3e} against the plain "
+              f"version in {mode} (limit {KERNEL_RTOL}); {rel_f32:.3e} against plain "
+              f"f32; 0-trip pairs give 0: {zero}")
+        check(rel <= KERNEL_RTOL, f"K1 {label} {prec}: kernel disagrees with its plain version")
+        check(zero, f"K1 {label} {prec}: a pair with 0 trips is not 0")
+        if mode == "bf16":
+            check(rel_f32 > 0 and rel_f32 >= BF16_SEPARATION * rel,
+                  f"K1 {label}: the bf16 kernel is not {BF16_SEPARATION}x nearer plain bf16 "
+                  f"({rel:.3e}) than plain f32 ({rel_f32:.3e})")
+        if prec == "high":
+            check(rel_f32 <= JAX_HIGH_REL, f"K1 {label}: high is {rel_f32} from f32")
+        key = "K1" if rname.startswith("cluster") else "K1w"
+        if prec == "high" or key == "K1w":
+            r = report[key]
+            r["max_abs_err"] = max(r["max_abs_err"], float((got - want).abs().max()))
+            r["max_rel_err"] = max(r["max_rel_err"], rel)
+        old = k1_modes.get((key, prec), (0.0, 0.0))
+        k1_modes[(key, prec)] = (max(old[0], rel), max(old[1], rel_f32))
+
+    for label, case_args, case_iters in cases:
         _, nx, ny = case_args[0].shape
-        for prec, mode in MODES.items():
-            cluster = cluster_route(nx, ny, prec)
-            route = "cluster" if cluster else "per-product"
-            plain_mode = mode if cluster else "f32"
+        rname = "cluster" if cluster_route(nx, ny) else "per-product"
+        for prec in MODES:
             before = (stem_fixed_point.launches, stem_fixed_point.launches_wide)
-            got = stem_fixed_point(*case_args, max_iters=case_iters, precision=prec)
-            torch.cuda.synchronize()
+            k1_parity(label, case_args, case_iters, prec,
+                      lambda: stem_fixed_point(*case_args, max_iters=case_iters,  # noqa: B023
+                                               precision=prec), f"{rname} route")  # noqa: B023
             after = (stem_fixed_point.launches, stem_fixed_point.launches_wide)
-            check(after[0 if cluster else 1] == before[0 if cluster else 1] + 1,
-                  f"K1 {label}: the {route} route did not run")
-            want = stem_fixed_point_reference(*case_args, max_iters=case_iters, mode=plain_mode)
-            check(bool(torch.isfinite(got).all()), f"K1 {label} {prec}: kernel output not finite")
-            rel, rel_f32 = k1_rel(got, want), k1_rel(got, f32)
-            zero = bool((got[case_args[-1] == 0] == 0).all())
-            print(f"K1 parity, {label}, {route} route, {prec} ({plain_mode}): trip counts "
-                  f"{int(case_args[-1].min())}..{int(case_args[-1].max())}: max abs "
-                  f"{float((got - want).abs().max()):.3e} max rel {rel:.3e} against the plain "
-                  f"version in {plain_mode} (limit {KERNEL_RTOL}); {rel_f32:.3e} against plain "
-                  f"f32; 0-trip pairs give 0: {zero}")
-            check(rel <= KERNEL_RTOL, f"K1 {label} {prec}: kernel disagrees with its plain version")
-            check(zero, f"K1 {label} {prec}: a pair with 0 trips is not 0")
-            if plain_mode == "bf16":
-                check(rel_f32 > 0 and rel_f32 >= BF16_SEPARATION * rel,
-                      f"K1 {label}: the bf16 kernel is not {BF16_SEPARATION}x nearer plain bf16 "
-                      f"({rel:.3e}) than plain f32 ({rel_f32:.3e})")
-            if prec == "high":
-                check(rel_f32 <= JAX_HIGH_REL, f"K1 {label}: high is {rel_f32} from f32")
-            if prec == "high" or not cluster:
-                r = report["K1" if cluster else "K1w"]
-                r["max_abs_err"] = max(r["max_abs_err"], float((got - want).abs().max()))
-                r["max_rel_err"] = max(r["max_rel_err"], rel)
-            if cluster:
-                old = k1_modes.get(prec, (0.0, 0.0))
-                k1_modes[prec] = (max(old[0], rel), max(old[1], rel_f32))
-    for prec, (rel, rel_f32) in k1_modes.items():
+            which = 0 if rname == "cluster" else 1
+            check(after[which] == before[which] + 1, f"K1 {label}: the {rname} route did not run")
+    for (key, prec), (rel, rel_f32) in k1_modes.items():
         jax_rel = {"highest": 0.0, "high": JAX_HIGH_REL, "default": JAX_DEFAULT_REL}[prec]
-        print(f"K1 cluster route, {prec} ({MODES[prec]}): max rel {rel:.3e} against its plain "
-              f"version, {rel_f32:.3e} against plain f32 (JAX {prec}: {jax_rel} against f32)")
-    _, args, iters = cases[0]
-    n_nodes = args[0].shape[1]
+        print(f"K1 {'cluster' if key == 'K1' else 'per-product'} route, {prec} ({MODES[prec]}): "
+              f"max rel {rel:.3e} against its plain version, {rel_f32:.3e} against plain f32 "
+              f"(JAX {prec}: {jax_rel} against f32)")
 
     tmp_dir = tempfile.TemporaryDirectory()
     tmp = tmp_dir.name
@@ -2347,27 +2412,11 @@ def main() -> int:
     check(bpp_diff <= BPP_BAND, "cuda and cpu folds disagree on the small input")
 
     # ---- 5. times ----
-    # each mode against the plain f32 version, in turns (plain, kernel,
-    # kernel, plain), on the square corpus batch
-    k1_times = {}
-    for prec, mode in MODES.items():
-        k_ms, p_ms = timed_pair(
-            lambda: stem_fixed_point(*args, max_iters=iters, precision=prec),  # noqa: B023
-            lambda: stem_fixed_point_reference(*args, max_iters=iters), 5)
-        b_ms, b_by = k1_bound(args, iters, mode)
-        k1_times[prec] = (k_ms, p_ms, b_ms, b_by)
-        geo = cluster_info(args[0].shape[1], args[0].shape[2], prec)
-        print(f"times on {smi}: K1 {prec} ({mode}) {k_ms:.3f} ms vs plain f32 {p_ms:.3f} ms, "
-              f"bound {b_ms:.4f} ms by {b_by} on its unit ({100 * b_ms / k_ms:.1f}% of the "
-              f"bound) (B={K1_BATCH} N={n_nodes} max_iters={iters}, trips "
-              f"{int(args[-1].min())}..{int(args[-1].max())}); one launch, clusters of "
-              f"{geo['ctas']} CTAs, {geo['smem_bytes']} B shared memory a CTA, "
-              f"{geo['active_clusters']} clusters active at once")
-    # every block shape of the stem Gram, in the Gram's batches: the cluster
-    # kernel in each mode, where it can run (up to 128 nodes), beside the
-    # per-product kernel (f32) on the same batch, and the route the wrapper
-    # takes (cluster_route).  These times place cluster_route's cut-over.
-    wide_pick = None  # (launches on the path, operands, iters) of the busiest per-product shape
+    # every block shape of the stem Gram, in the Gram's batches, in each
+    # mode: the per-product route, beside the cluster kernel where that
+    # runs (up to 64 nodes) on the same batch, and the library chains.
+    # These times place cluster_route's cut-over.
+    picks = {}  # route -> (train launches, operands, iters) of its busiest shape in "high"
     for i, bx in enumerate(by_nodes):
         for by in by_nodes[i:]:
             blk, blk_iters = corpus_block(bx, by)
@@ -2375,43 +2424,71 @@ def main() -> int:
             nb = len(bx[0]) * (len(bx[0]) + 1) // 2 if by is bx else len(bx[0]) * len(by[0])
             batches = -(-nb // K1_BATCH)  # the train Gram's launches at this shape
             it = torch.clamp(blk[-1], max=blk_iters).contiguous()
-            pp = lambda: per_product_route(*blk[:-1], it, max_iters=blk_iters)  # noqa: B023,E731
-            parts, geo = [], None
+            taken = "cluster" if cluster_route(nx, ny) else "per-product"
+            parts = []
             for prec, mode in MODES.items():
-                route = "cluster" if cluster_route(nx, ny, prec) else "per-product"
-                if max(nx, ny) > MAX_CLUSTER_NODES:
-                    parts.append(f"{prec} ({mode}): {route}")
+                pp = lambda: per_product_route(*blk[:-1], it, precision=prec)  # noqa: B023,E731
+                if taken != "cluster":
+                    pp()
+                    parts.append(f"{prec} ({mode}): per-product {cuda_ms(pp, 2):.3f} ms")
                     continue
                 k_ms, pp_ms = timed_pair(
                     lambda: cluster_kernel(*blk[:-1], it, precision=prec),  # noqa: B023
                     pp, 3)
                 parts.append(f"{prec} ({mode}): cluster {k_ms:.3f} ms vs per-product "
-                             f"{pp_ms:.3f} ms, the wrapper takes {route}")
-                geo = geo or cluster_info(nx, ny, prec)
-            if not cluster_route(nx, ny, "high"):  # the main path's mode
-                pp()
-                parts.append(f"per-product kernel {cuda_ms(pp, 2):.3f} ms (f32)")
-                if wide_pick is None or batches > wide_pick[0]:
-                    wide_pick = (batches, blk, blk_iters)
-            clusters = (f"; clusters of {geo['ctas']} CTAs, {geo['active_clusters']} active at "
-                        f"once" if geo else "")
+                             f"{pp_ms:.3f} ms")
+            if taken not in picks or batches > picks[taken][0]:
+                picks[taken] = (batches, blk, blk_iters)
+            chains = (chain_ms(blk, blk_iters)[0], chain_ms(blk, blk_iters, tf32=True)[0],
+                      chain_ms(blk, blk_iters, torch.bfloat16)[0])
             print(f"times on {smi}: K1 block Nx={nx} Ny={ny} (B={K1_BATCH}, trips "
-                  f"{int(blk[-1].min())}..{int(blk[-1].max())}, {batches} train launches"
-                  f"{clusters}): {'; '.join(parts)}")
-    # the per-product route at the shape that takes it most often on the path
-    _, w_args, w_iters = wide_pick
-    w_it = torch.clamp(w_args[-1], max=w_iters).contiguous()
-    w_ms, w_plain = timed_pair(
-        lambda: per_product_route(*w_args[:-1], w_it, max_iters=w_iters),
-        lambda: stem_fixed_point_reference(*w_args, max_iters=w_iters), 2)
-    w_bound, w_by = k1_bound(w_args, w_iters, "f32")
-    _, nx, ny = w_args[0].shape
-    print(f"times on {smi}: K1 per-product route {w_ms:.3f} ms vs plain f32 {w_plain:.3f} ms, "
-          f"bound {w_bound:.4f} ms by {w_by} (B={K1_BATCH} Nx={nx} Ny={ny}, "
-          f"{4 * w_iters + 1} launches a call)")
-    w_dev = graph_ms(lambda: per_product_route(*w_args[:-1], w_it, max_iters=w_iters), 2)
-    report["K1w"].update(ms=w_ms, device_ms=w_dev, plain_ms=w_plain, bound_ms=w_bound,
-                         bound_by=w_by, mode=f"f32 for every name, timed at Nx={nx} Ny={ny}")
+                  f"{int(blk[-1].min())}..{int(blk[-1].max())}, {batches} train launches, the "
+                  f"wrapper takes {taken}): {'; '.join(parts)}; library chain at the same "
+                  f"pair-trips: f32 {chains[0]:.3f}, tf32 one pass {chains[1]:.3f}, bf16 "
+                  f"{chains[2]:.3f} ms")
+    # each route in each mode at the shape that takes it most often on the
+    # path, against the plain f32 version (plain, kernel, kernel, plain) and
+    # the library chain: the same pair-trips' products through torch.bmm
+    for key, rname in (("K1", "cluster"), ("K1w", "per-product")):
+        _, r_args, r_iters = picks[rname]
+        r_it = torch.clamp(r_args[-1], max=r_iters).contiguous()
+        _, nx, ny = r_args[0].shape
+        f32_chain, chain_vals = chain_ms(r_args, r_iters)
+        chain_rel = k1_rel(chain_vals, stem_fixed_point_reference(*r_args, max_iters=r_iters))
+        check(chain_rel <= KERNEL_RTOL, f"K1 {rname}: the f32 library chain is {chain_rel} "
+              "from the plain version: it does not compute K1's function")
+        for prec, mode in MODES.items():
+            if key == "K1":
+                run = lambda: cluster_kernel(*r_args[:-1], r_it, precision=prec)  # noqa: B023,E731
+                geo = cluster_info(nx, ny, prec)
+                how = (f"one launch, one CTA a pair, {geo['smem_bytes']} B shared memory a CTA, "
+                       f"{geo['active_pairs']} pairs active at once")
+            else:
+                run = lambda: per_product_route(*r_args[:-1], r_it, precision=prec)  # noqa: B023,E731
+                geo = strips_info(nx, ny, prec)
+                how = (f"one launch, clusters of {geo['ctas']} CTAs, {geo['smem_bytes']} B shared "
+                       f"memory a CTA, {geo['active_pairs']} pairs active at once, strip "
+                       f"{'spilled' if geo['spill'] else 'in shared memory'}")
+            k_ms, p_ms = timed_pair(
+                run, lambda: stem_fixed_point_reference(*r_args, max_iters=r_iters), 2)  # noqa: B023
+            d_ms = graph_ms(run, 2)
+            b_ms, b_by = k1_bound(r_args, r_iters, mode)
+            lib = {"f32": f32_chain}
+            if mode == "bf16":
+                lib["bf16"] = chain_ms(r_args, r_iters, torch.bfloat16)[0]
+            if mode == "3xtf32":
+                lib["tf32, one pass"] = chain_ms(r_args, r_iters, tf32=True)[0]
+            if prec == "high":  # the main path's mode
+                report[key].update(ms=k_ms, device_ms=d_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                   bound_by=b_by, library_ms=f32_chain, mode="high (3xTF32)",
+                                   shape=f"B={K1_BATCH} Nx={nx} Ny={ny}")
+            print(f"times on {smi}: K1 {rname} route {prec} ({mode}) {k_ms:.3f} ms [device "
+                  f"{d_ms:.3f}] vs plain f32 {p_ms:.3f} ms, bound {b_ms:.4f} ms by {b_by} on its "
+                  f"unit ({100 * b_ms / k_ms:.1f}% of the bound), library chain "
+                  f"{', '.join(f'{k} {v:.3f} ms' for k, v in lib.items())} (each pair its own "
+                  f"trips, {int(r_it.sum())} pair-trips; f32 chain {chain_rel:.3e} from the plain "
+                  f"version) (B={K1_BATCH} Nx={nx} Ny={ny} max_iters={r_iters}, trips "
+                  f"{int(r_it.min())}..{int(r_it.max())}); {how}")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fold_sequences(train, cfg.bp_opts, device=dev)
@@ -2426,10 +2503,7 @@ def main() -> int:
     print(f"times on {smi}: fold {len(train) / fold_s:.1f} seqs/s; Gram (precision "
           f"{cfg.precision}) {n_pairs / gram_s:.1f} pairs/s ({gram_s:.2f} s); train flow "
           f"{train_s:.2f} s; predict flow {2 * N_TEST / predict_s:.2f} rows/s ({predict_s:.2f} s)")
-    k_ms, p_ms, b_ms, b_by = k1_times["high"]  # the main path's mode
-    k_dev = graph_ms(lambda: stem_fixed_point(*args, max_iters=iters, precision="high"), 3)
-    report["K1"].update(ms=k_ms, device_ms=k_dev, plain_ms=p_ms, launches=launches,
-                        bound_ms=b_ms, bound_by=b_by, mode="high (3xTF32)")
+    report["K1"]["launches"] = launches
 
     # ---- 6. LA parity (K2-K5) at the paths' shapes ----
     alpha, beta, gap, ext = BPLA
@@ -2962,12 +3036,15 @@ def main() -> int:
                "stem_kernel_tpu/ops/pallas_full_stem.py:426"),
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    extra = ("device_ms", "max_rel_err", "mode", "max_abs_err_lanes", "max_abs_err_one_warp",
+    extra = ("device_ms", "max_rel_err", "mode", "shape", "max_abs_err_lanes",
+             "max_abs_err_one_warp",
              "max_rel_err_lanes", "max_rel_err_one_warp")
-    # no single PyTorch call computes any of these functions: library_ms is null
+    # K1's library_ms is the f32 torch.bmm chain at the same pair-trips
+    # (chain_ms); K1's and K1w's "shape" is where they were timed; no PyTorch call
+    # computes K2-K6's functions: null
     print(json.dumps({"kernels": [
         {"name": nm, "route": "cuda", "source": src, "replaces": rep,
-         **{f: report[k][f] for f in keys}, "library_ms": None,
+         **{f: report[k][f] for f in keys}, "library_ms": report[k].get("library_ms"),
          **{f: report[k][f] for f in extra if f in report[k]}}
         for k, (nm, src, rep) in meta.items()]}))
     print(json.dumps({"ok": True, "device": {

@@ -104,10 +104,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="substitution weight for base pairs (with --no-ribosum)")
     s.add_argument("--precision", choices=["highest", "high", "default"],
                    default="high",
-                   help="closure fixed point products on the card: highest = "
-                        "f32, high = 3xTF32 (about 1e-5 from f32), default = bf16 "
-                        "operands with f32 sums; pairs past 128 nodes (and, under high, "
-                        "Nx <= 64 < Ny) and --device cpu run f32 for every name")
+                   help="closure fixed point products on the card, at every node "
+                        "count: highest = f32, high = 3xTF32 (about 1e-5 from f32), "
+                        "default = bf16 operands with f32 sums; --device cpu runs f32 "
+                        "for every name")
     s.add_argument("--length-band", type=int, default=10,
                    help="band of length difference between bases")
     s.add_argument("--coarse-shapes", action="store_true",

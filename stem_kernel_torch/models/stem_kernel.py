@@ -12,8 +12,9 @@ iterated min(depth_x, depth_y) + 1 times per pair, and the kernel value is
 u_x^T M u_y plus the leaf-leaf base term.  The fixed point runs in
 :func:`..ops.stem_fixed_point.stem_fixed_point`: the hand-written CUDA
 kernel for CUDA tensors, and its plain torch version (f32) for CPU tensors.
-On the card the precision names map onto product modes: "highest" f32,
-"high" 3xTF32, "default" bf16 (``ops.stem_fixed_point.MODES``).
+On the card the precision names map onto product modes, on both of its
+routes and at every node count: "highest" f32, "high" 3xTF32, "default"
+bf16 (``ops.stem_fixed_point.MODES``).
 
 Node scores are one 16x16 contraction of flattened base-pair profiles plus
 rank-1 gap corrections:
@@ -78,8 +79,9 @@ def stem_kernel_pairs(x: dict, y: dict, co_table: torch.Tensor, *, iters: int,
     A (B,N,N), V (B,N,N), u (B,N), r (B,N), leaf (B,N), bp_freq (B,N,16),
     gap2w (B,N), nbp_frac (B,N), length (B,N), valid (B,N), depth (B,).
     ``iters`` bounds every pair's trip count.  ``precision`` picks the
-    fixed point's product mode on the card ("highest" f32, "high" 3xTF32,
-    "default" bf16); CPU tensors run f32 for every name.
+    fixed point's product mode on the card, for every block shape
+    ("highest" f32, "high" 3xTF32, "default" bf16); CPU tensors run f32 for
+    every name.
     """
     if precision not in PRECISIONS:
         raise ValueError(f"unknown precision {precision!r}")

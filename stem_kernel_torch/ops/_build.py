@@ -92,8 +92,13 @@ def load_library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = lib.stem_fixed_point_f32
-    fn.argtypes = [p] * 9 + [i, i, i, i] + [p] * 4 + [p]
+    # (ns, vx, vy, ax, ay, l, ux, uy, iters, batch, nx, ny, mode, m, g2, st,
+    #  out, stream)
+    fn = lib.stem_fixed_point_strips
+    fn.argtypes = [p] * 9 + [i] * 4 + [p] * 5
+    fn.restype = ctypes.c_int
+    fn = lib.stem_fixed_point_strips_info
+    fn.argtypes = [i, i, i, p]
     fn.restype = ctypes.c_int
     # (ns, vx, vy, ax, ay, l, ux, uy, iters, batch, nx, ny, mode, out, stream)
     fn = lib.stem_fixed_point_cluster

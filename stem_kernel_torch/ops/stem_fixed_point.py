@@ -13,7 +13,7 @@ it on the card and what its design does about it.
 Precision.  In the JAX package the names count MXU passes: "highest" is
 full f32, "high" three bf16 passes (about 9e-4 relative against f32),
 "default" one bf16 pass (about 6e-2).  On the card they map onto Hopper's
-units (:data:`MODES`):
+units (:data:`MODES`), on both routes and at every node count:
 
 - "highest" -> "f32": f32 FFMA products;
 - "high" (the CLI default) -> "3xtf32": each operand x = hi + lo, both TF32
@@ -24,23 +24,25 @@ units (:data:`MODES`):
 
 On the CPU every name runs f32, as the JAX package's dots do on the CPU.
 
-Routes on the card, chosen by shape and mode (:func:`cluster_route`): pairs
-with max(Nx, Ny) <= 128 (node counts padded to 16 here) take the cluster
-kernel, one launch for the whole fixed point, 1 or 4 CTAs a pair
-(``stem_fixed_point.launches``); the rest take the per-product kernel, four
-launches an iteration, f32 for every name (``stem_fixed_point.launches_wide``).
-The cut-over is where the card's times put it (``chip_smoke.py`` phase 5
-times every block shape of the stem Gram on both routes): past 128 nodes a
-pair needs 16-CTA clusters, slower than the per-product kernel at every such
-shape in every mode; and in 3xTF32 a cluster whose four CTAs hold 16 rows
-each (Nx <= 64 < Ny) is slower too.  A CPU tensor takes
-:func:`stem_fixed_point_reference`; a CUDA tensor launches a kernel or
-raises.  Nothing falls back.
+Routes on the card, chosen by shape (:func:`cluster_route`; node counts
+padded to 16 here): pairs with max(Nx, Ny) <= 64 take the cluster kernel,
+one launch for the whole fixed point, one CTA a pair
+(``stem_fixed_point.launches``); the rest take the per-product route's
+strip kernel, also one launch: a pair's columns in strips of 64, one strip
+a CTA of a cluster of up to 8 (``stem_fixed_point.launches_wide``).  The
+cut-over is where the card's times put it, the same in every mode
+(``chip_smoke.py`` phase 5 times every block shape of the stem Gram on the
+strip kernel, and on the cluster kernel where it runs): the strip kernel
+is slower at 64 x 64, and faster at 64 x 128 and 128 x 128 in every mode
+than clusters of four CTAs a pair, so the cluster kernel takes one CTA's
+worth, 64 nodes.  A CPU tensor takes :func:`stem_fixed_point_reference`; a
+CUDA tensor launches a kernel or raises.  Nothing falls back.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -50,7 +52,7 @@ from ._build import load_library
 PRECISIONS = ("highest", "high", "default")
 MODES = {"highest": "f32", "high": "3xtf32", "default": "bf16"}
 _MODE_IDS = {"f32": 0, "3xtf32": 1, "bf16": 2}
-MAX_CLUSTER_NODES = 128  # the largest max(Nx, Ny) that takes the cluster kernel
+MAX_CLUSTER_NODES = 64  # the largest max(Nx, Ny) that takes the cluster kernel
 NODE_MULTIPLE = 16  # the cluster kernel's tile: node counts are padded to it
 
 
@@ -124,8 +126,6 @@ def _check(ns, vx, vy, ax, ay, l, ux, uy, iters) -> tuple[int, int, int]:
         raise ValueError(
             f"iters: need contiguous int32 ({bsz},) on {dev}, got "
             f"{iters.dtype} {tuple(iters.shape)} on {iters.device}")
-    if bsz > 65535:
-        raise ValueError(f"batch {bsz} exceeds the kernel's grid limit of 65535 pairs")
     return bsz, nx, ny
 
 
@@ -133,13 +133,11 @@ def _round_up(n: int) -> int:
     return -(-n // NODE_MULTIPLE) * NODE_MULTIPLE
 
 
-def cluster_route(nx: int, ny: int, precision: str) -> bool:
-    """Whether a CUDA batch of (Nx, Ny) pairs takes the cluster kernel at
-    ``precision`` (module docstring: where the card's times put the cut-over)."""
-    px, py = _round_up(nx), _round_up(ny)
-    if max(px, py) > MAX_CLUSTER_NODES:
-        return False
-    return not (MODES[precision] == "3xtf32" and px <= 64 < py)
+def cluster_route(nx: int, ny: int) -> bool:
+    """Whether a CUDA batch of (Nx, Ny) pairs takes the cluster kernel, in
+    every mode (module docstring: where the card's times put the cut-over);
+    the per-product route takes the rest."""
+    return max(_round_up(nx), _round_up(ny)) <= MAX_CLUSTER_NODES
 
 
 def _pad_nodes(ops: list, nx: int, ny: int) -> list:
@@ -159,15 +157,29 @@ def _pad_nodes(ops: list, nx: int, ny: int) -> list:
 
 
 def cluster_info(nx: int, ny: int, precision: str = "high") -> dict[str, int]:
-    """The cluster kernel's launch geometry on the current card: CTAs a
-    pair, dynamic shared memory a CTA, and clusters that can be active at
-    once (``cudaOccupancyMaxActiveClusters``)."""
-    res = (ctypes.c_int * 3)()
+    """The cluster kernel's launch geometry on the current card (one CTA a
+    pair): dynamic shared memory a CTA, and pairs that can be active at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` times the SMs)."""
+    res = (ctypes.c_int * 2)()
     rc = load_library().stem_fixed_point_cluster_info(
         _round_up(nx), _round_up(ny), _MODE_IDS[MODES[precision]], res)
     if rc != 0:
         raise RuntimeError(f"stem_fixed_point_cluster_info failed: CUDA error {rc}")
-    return {"ctas": res[0], "smem_bytes": res[1], "active_clusters": res[2]}
+    return {"smem_bytes": res[0], "active_pairs": res[1]}
+
+
+@functools.cache
+def strips_info(nx: int, ny: int, precision: str = "high") -> dict[str, int]:
+    """The per-product route's launch geometry on the current card for
+    (Nx, Ny) (padded to 16): CTAs a pair, dynamic shared memory a CTA,
+    pairs (clusters) active at once, and whether the strip spills to device
+    memory, which it does where it does not fit shared memory."""
+    res = (ctypes.c_int * 4)()
+    rc = load_library().stem_fixed_point_strips_info(
+        _round_up(nx), _round_up(ny), _MODE_IDS[MODES[precision]], res)
+    if rc != 0:
+        raise RuntimeError(f"stem_fixed_point_strips_info failed: CUDA error {rc}")
+    return {"ctas": res[0], "smem_bytes": res[1], "active_pairs": res[2], "spill": res[3]}
 
 
 def stem_fixed_point(ns, vx, vy, ax, ay, l, ux, uy, iters, *,
@@ -190,20 +202,20 @@ def stem_fixed_point(ns, vx, vy, ax, ay, l, ux, uy, iters, *,
     if bsz == 0:
         return torch.empty(0, device=ns.device, dtype=torch.float32)
     it = torch.clamp(iters, max=max_iters).contiguous()
-    if cluster_route(nx, ny, precision):
+    if cluster_route(nx, ny):
         out = cluster_kernel(ns, vx, vy, ax, ay, l, ux, uy, it, precision=precision)
         stem_fixed_point.launches += 1
     else:
-        out = per_product_route(ns, vx, vy, ax, ay, l, ux, uy, it, max_iters=max_iters)
+        out = per_product_route(ns, vx, vy, ax, ay, l, ux, uy, it, precision=precision)
         stem_fixed_point.launches_wide += 1
     return out
 
 
 def cluster_kernel(ns, vx, vy, ax, ay, l, ux, uy, iters, *, precision: str) -> torch.Tensor:
-    """The cluster kernel on checked CUDA operands with max(Nx, Ny) <= 128
-    and ``iters`` already capped: one launch.  The wrapper takes it where
-    :func:`cluster_route` says so; ``chip_smoke.py`` also times it at the
-    other shapes it can run, beside the per-product kernel.  Counts no launch."""
+    """The cluster kernel on checked CUDA operands with max(Nx, Ny) <= 64
+    and ``iters`` already capped: one launch, products in
+    ``MODES[precision]``.  The wrapper takes it where :func:`cluster_route`
+    says so.  Counts no launch."""
     bsz, nx, ny = ns.shape
     ops = _pad_nodes([ns, vx, vy, ax, ay, l, ux, uy], nx, ny)
     out = torch.empty(bsz, device=ns.device, dtype=torch.float32)
@@ -217,19 +229,27 @@ def cluster_kernel(ns, vx, vy, ax, ay, l, ux, uy, iters, *, precision: str) -> t
     return out
 
 
-def per_product_route(ns, vx, vy, ax, ay, l, ux, uy, iters, *, max_iters: int) -> torch.Tensor:
-    """The per-product kernel on checked CUDA operands, f32, any shape:
-    four launches an iteration and one for the bilinear form.  The wrapper
-    takes it where :func:`cluster_route` says no; ``chip_smoke.py`` also
-    times it beside the cluster kernel.  Counts no launch."""
-    out = torch.empty(ns.shape[0], device=ns.device, dtype=torch.float32)
-    m, g1, g2 = torch.empty_like(ns), torch.empty_like(ns), torch.empty_like(ns)
+def per_product_route(ns, vx, vy, ax, ay, l, ux, uy, iters, *, precision: str) -> torch.Tensor:
+    """The per-product route's strip kernel on checked CUDA operands,
+    ``iters`` already capped: one launch, any shape, products in
+    ``MODES[precision]``; the strip spills to device memory where it does
+    not fit shared memory (:func:`strips_info`).  The wrapper takes it where
+    :func:`cluster_route` says no; ``chip_smoke.py`` also times it beside
+    the cluster kernel.  Counts no launch."""
+    bsz, nx, ny = ns.shape
+    ops = _pad_nodes([ns, vx, vy, ax, ay, l, ux, uy], nx, ny)
+    px, py = ops[0].shape[1], ops[0].shape[2]
+    geo = strips_info(px, py, precision)
+    out = torch.empty(bsz, device=ns.device, dtype=torch.float32)
+    m = torch.empty((bsz, px, py), device=ns.device, dtype=torch.float32)
+    g2 = torch.empty_like(m)
+    st = torch.empty((bsz, py, px), device=ns.device, dtype=torch.float32) if geo["spill"] else None
     with torch.cuda.device(ns.device):
-        rc = load_library().stem_fixed_point_f32(
-            ns.data_ptr(), vx.data_ptr(), vy.data_ptr(), ax.data_ptr(), ay.data_ptr(),
-            l.data_ptr(), ux.data_ptr(), uy.data_ptr(), iters.data_ptr(), ns.shape[0],
-            ns.shape[1], ns.shape[2], max_iters, m.data_ptr(), g1.data_ptr(), g2.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(ns.device).cuda_stream)
+        rc = load_library().stem_fixed_point_strips(
+            *[t.data_ptr() for t in ops], iters.data_ptr(), bsz, px, py,
+            _MODE_IDS[MODES[precision]], m.data_ptr(), g2.data_ptr(),
+            None if st is None else st.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(ns.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"stem_fixed_point per-product kernel launch failed: CUDA error {rc}")
     return out

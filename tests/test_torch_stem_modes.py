@@ -5,9 +5,15 @@ MODES``); the plain version rounds each product's operands as the kernel
 does.  Here: the rounding helpers against numpy bit-level references, the
 3xTF32 split, the plain version in each mode against the JAX package on
 real DAG features (square per-pair trips, and a rectangular Nx != Ny
-batch), the CPU wrapper's f32 for every name, and the kernel on the card
-against the plain version in the same mode (skipped without a card).
+batch) and on random operands past 128 nodes (the per-product route's
+shapes, Nx < Ny and Nx > Ny), the CPU wrapper's f32 for every name, the
+route table (every route runs the mode its name maps to), and the kernel
+on the card against the plain version in the same mode (skipped without a
+card).
 """
+
+import contextlib
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -87,16 +93,54 @@ def _rel(got: np.ndarray, want: np.ndarray) -> float:
     return float((np.abs(got - want) / np.abs(want)).max())
 
 
-def test_bf16_mode_matches_pallas_default():
+def _wide_case(nx: int, ny: int):
+    """Random operands past 128 nodes, B = 2 with per-pair trips (2, 3),
+    scaled as chip_smoke's k1_random so the fixed point stays bounded; and
+    the same operands zero-padded to a square max(Nx, Ny), which the JAX
+    kernel takes (it pads to n_pad 256 itself; zero nodes leave M alone)."""
+    rng = np.random.default_rng(nx * 1000 + ny)
+    f32 = np.float32
+    ops = [rng.random((2, nx, ny), f32), rng.random((2, nx, nx), f32) * f32(1.5 / nx),
+           rng.random((2, ny, ny), f32) * f32(1.5 / ny),
+           rng.random((2, nx, nx), f32) * f32(1.5 / nx),
+           rng.random((2, ny, ny), f32) * f32(1.5 / ny), rng.random((2, nx, ny), f32),
+           rng.random((2, nx), f32), rng.random((2, ny), f32)]
+    n = max(nx, ny)
+    square = [np.pad(o, [(0, 0)] + [(0, n - d) for d in o.shape[1:]]) for o in ops]
+    iters = np.array([2, 3], np.int32)
+    return ([torch.as_tensor(o) for o in ops] + [torch.as_tensor(iters)],
+            [jnp.asarray(o) for o in square] + [jnp.asarray(iters)], 3)
+
+
+def _jax_per_pair(jops: list, iters: int, precision: str) -> np.ndarray:
+    """The JAX kernel one pair a call: it runs a block of pairs for the
+    block's largest trip count (no-ops on DAG features, whose fixed point
+    is stable past its depth, but not on random operands), so alone each
+    pair keeps its own trips."""
+    return np.concatenate([np.asarray(j_fixed_point(
+        *[o[b:b + 1] for o in jops], max_iters=iters, precision=precision, interpret=True))
+        for b in range(jops[0].shape[0])])
+
+
+_WIDE = {"144x160": (144, 160), "160x144": (160, 144)}
+
+
+@pytest.mark.parametrize("case", ["corpus", *_WIDE])
+def test_bf16_mode_matches_pallas_default(case):
     """The plain version in bf16 against the JAX kernel's one-pass bf16
     ``dot_bf`` (interpret mode): both round the operands of every product to
-    bf16 and sum in f32.  They agree within 1e-5 relative (8.1e-8 measured),
-    while bf16 moves the value 1.4e-3 from f32: the plain version must sit at
-    least 10x nearer the JAX kernel than the f32 value does, so a version
-    that skips or halves the rounding fails."""
-    ops, iters = _pair_operands("per_pair")
-    want = np.asarray(j_fixed_point(*[jnp.asarray(o.numpy()) for o in ops], max_iters=iters,
-                                    precision="default", interpret=True))
+    bf16 and sum in f32.  They agree within 1e-5 relative (8.1e-8 measured
+    on the corpus), while bf16 moves the value 1.4e-3 from f32 there: the
+    plain version must sit at least 10x nearer the JAX kernel than the f32
+    value does, so a version that skips or halves the rounding fails.  Past
+    128 nodes (the per-product route's shapes) on random operands too."""
+    if case == "corpus":
+        ops, iters = _pair_operands("per_pair")
+        want = np.asarray(j_fixed_point(*[jnp.asarray(o.numpy()) for o in ops],
+                                        max_iters=iters, precision="default", interpret=True))
+    else:
+        ops, jops, iters = _wide_case(*_WIDE[case])
+        want = _jax_per_pair(jops, iters, "default")
     got = fp.stem_fixed_point_reference(*ops, max_iters=iters, mode="bf16").numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5)
     f32 = fp.stem_fixed_point_reference(*ops, max_iters=iters).numpy()
@@ -124,14 +168,18 @@ def _rect_case():
 
 
 @pytest.mark.parametrize("mode", ["f32", "3xtf32"])
-@pytest.mark.parametrize("shape", ["square", "rectangular"])
+@pytest.mark.parametrize("shape", ["square", "rectangular", *_WIDE])
 def test_f32_modes_match_jax_highest(mode, shape):
     """f32 and 3xTF32 against JAX "highest" (full f32) within 1e-4 rel:
-    the Pallas kernel in interpret mode (square) or the XLA loop (Nx != Ny)."""
+    the Pallas kernel in interpret mode (square, and random operands past
+    128 nodes, zero-padded square for it) or the XLA loop (Nx != Ny)."""
     if shape == "square":
         ops, iters = _pair_operands("per_pair")
         want = np.asarray(j_fixed_point(*[jnp.asarray(o.numpy()) for o in ops],
                                         max_iters=iters, precision="highest", interpret=True))
+    elif shape in _WIDE:
+        ops, jops, iters = _wide_case(*_WIDE[shape])
+        want = _jax_per_pair(jops, iters, "highest")
     else:
         ops, iters, want = _rect_case()
     assert len(set(ops[-1].tolist())) > 1  # per-pair trip counts
@@ -150,18 +198,70 @@ def test_cpu_wrapper_runs_f32_for_every_name(precision):
 
 
 def test_modes_and_routes():
+    """The cut-over the card's times placed (chip_smoke.py phase 5), the same
+    in every mode: the cluster kernel up to 64 nodes (one CTA a pair), the
+    per-product route's strip kernel past it, at 64 x 128 and 128 x 128 too."""
     assert fp.MODES == {"highest": "f32", "high": "3xtf32", "default": "bf16"}
-    for precision in fp.PRECISIONS:
-        assert fp.cluster_route(128, 128, precision) and fp.cluster_route(120, 16, precision)
-        assert fp.cluster_route(1, 64, precision) and fp.cluster_route(128, 64, precision)
-        assert not fp.cluster_route(129, 64, precision)
-        assert not fp.cluster_route(64, 144, precision)
-        assert not fp.cluster_route(256, 256, precision)
-    # 3xTF32 on four CTAs of 16 rows each: the per-product kernel
-    assert not fp.cluster_route(64, 128, "high") and not fp.cluster_route(20, 100, "high")
-    assert fp.cluster_route(64, 128, "highest") and fp.cluster_route(64, 128, "default")
+    assert fp.cluster_route(64, 64) and fp.cluster_route(1, 64)
+    assert fp.cluster_route(60, 16) and fp.cluster_route(16, 49)
+    assert not fp.cluster_route(65, 64)  # 80 nodes once padded
+    assert not fp.cluster_route(64, 128) and not fp.cluster_route(20, 100)
+    assert not fp.cluster_route(128, 128) and not fp.cluster_route(120, 16)
+    assert not fp.cluster_route(129, 64)
+    assert not fp.cluster_route(64, 144)
+    assert not fp.cluster_route(256, 256)
     with pytest.raises(ValueError):
         fp.stem_fixed_point_reference(*_pair_operands("full")[0], max_iters=2, mode="tf32")
+
+
+class _FakeLibrary:
+    """Stands in for the built CUDA library: records the route and the mode
+    id (argument 12 of both launch entry points) of each launch."""
+
+    def __init__(self):
+        self.calls = []
+
+    def stem_fixed_point_cluster(self, *args):
+        self.calls.append(("cluster", args[12]))
+        return 0
+
+    def stem_fixed_point_strips(self, *args):
+        self.calls.append(("per-product", args[12]))
+        return 0
+
+    def stem_fixed_point_strips_info(self, nx, ny, mode, res):
+        res[0], res[1], res[2], res[3] = 1, 0, 1, 0  # CTAs, shared memory, active, spill
+        return 0
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_route_runs_the_named_mode(precision, monkeypatch):
+    """Each route the wrapper picks passes the library the mode id its name
+    maps to (the C interface's 0 f32, 1 3xTF32, 2 bf16), on both sides of
+    the cut-over and past 128 nodes, Nx < Ny and Nx > Ny: the launch
+    functions run on CPU tensors against a stand-in for the built library."""
+    lib = _FakeLibrary()
+    monkeypatch.setattr(fp, "load_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=None))
+    want = {"highest": 0, "high": 1, "default": 2}[precision]
+    shapes = {(16, 16): "cluster", (64, 48): "cluster", (40, 64): "cluster",
+              (64, 80): "per-product", (128, 128): "per-product", (144, 160): "per-product",
+              (160, 144): "per-product", (320, 288): "per-product"}
+    fp.strips_info.cache_clear()
+    try:
+        for (nx, ny), name in shapes.items():
+            ops = [torch.zeros(shape) for shape in ((1, nx, ny), (1, nx, nx), (1, ny, ny),
+                                                    (1, nx, nx), (1, ny, ny), (1, nx, ny),
+                                                    (1, nx), (1, ny))]
+            iters = torch.ones(1, dtype=torch.int32)
+            launch = fp.cluster_kernel if fp.cluster_route(nx, ny) else fp.per_product_route
+            launch(*ops, iters, precision=precision)
+            assert lib.calls[-1] == (name, want), (nx, ny)
+    finally:
+        fp.strips_info.cache_clear()
+    assert len(lib.calls) == len(shapes)
 
 
 @pytest.mark.cuda
@@ -173,9 +273,7 @@ def test_modes_and_routes():
 def test_cuda_modes_match_plain_version(precision, shape):
     """The kernel in each mode against the plain version in the same mode,
     on random operands scaled so the fixed point stays bounded, with
-    per-pair trips (0 included).  Where ``cluster_route`` says no (past
-    128 nodes; 64 x 128 in 3xTF32) the per-product route runs, f32 for
-    every name."""
+    per-pair trips (0 included), on the route ``cluster_route`` picks."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
     nx, ny = shape
@@ -188,13 +286,13 @@ def test_cuda_modes_match_plain_version(precision, shape):
     vecs = [torch.rand(bsz, nx, generator=g), torch.rand(bsz, ny, generator=g)]
     trips = torch.tensor([0, 1, 2, 3, 5, 6], dtype=torch.int32)
     args = [t.cuda() for t in mats + vecs + [trips]]
-    wide = not fp.cluster_route(nx, ny, precision)
+    wide = not fp.cluster_route(nx, ny)
     before = fp.stem_fixed_point.launches_wide if wide else fp.stem_fixed_point.launches
     got = fp.stem_fixed_point(*args, max_iters=6, precision=precision).cpu().numpy()
     torch.cuda.synchronize()
     after = fp.stem_fixed_point.launches_wide if wide else fp.stem_fixed_point.launches
     assert after == before + 1
-    mode = "f32" if wide else fp.MODES[precision]
+    mode = fp.MODES[precision]
     want = fp.stem_fixed_point_reference(*args, max_iters=6, mode=mode).cpu().numpy()
     np.testing.assert_allclose(got, want, rtol=1e-4)  # f32 sums in another order
     assert got[0] == 0.0
