@@ -106,9 +106,12 @@ Phases (the first failure exits non-zero; nothing is caught):
    ``-b 16 -a 0.5`` on 40 of the sequences;
 14. ``stem_kernel`` with ``--device cpu`` against ``--device cuda`` on 6
    sequences of 60-90 nt, banded (``-b 8``) and dense, within 1e-4;
-15. K6 time against its plain version (B = 16, n = 301), the ``-b 16``
-   train Gram's pairs/s, and the device busy share of its first 20 batches
-   under torch.profiler;
+15. K6 time against its plain version (B = 16, n = 301), its device time
+   and launches a call (torch.profiler), a call's time at batches of 1, 4,
+   16 and 64 config-3 pairs, the ``-b 16`` train Gram's
+   pairs/s, and the device busy share of its first 20 batches under
+   torch.profiler with the host's reads of device values (``int(lx.max())``
+   in the wrapper among them);
 16. optimizer path (no K1-K6 kernel on it): the stem path's generator cut to
    48-60 nt (100 + 100 sequences), folded on the card; K and dK/d(alpha,
    beta, gap, ext) of all 20,100 pairs by ``bpla_optimizer.
@@ -208,7 +211,7 @@ calls, host time between launches included; ``device_ms`` the same calls
 captured in a CUDA graph and replayed under CUDA events, except K6's: its
 wrapper reads max(lx) on the host, so its ``device_ms`` is the summed time
 of the device's events under torch.profiler (null if the trace holds
-none).  K2 and K5 also list their largest abs error on the lane kernels and on
+none), and its ``launches_a_call`` the kernel's launches a call there.  K2 and K5 also list their largest abs error on the lane kernels and on
 the one-warp kernel apart, K3 and K4 their largest rel error.  The last line is ``{"ok": true, "device":
 {...}}``.  Imports nothing of JAX.
 """
@@ -275,6 +278,7 @@ CAP_BATCH = 256  # K2 pairs at the lane kernels' longest
 PAST_CAP = 600  # a K2 batch past the lane kernels' 512 rows and columns
 ILL_LEN = 1000  # a K2 batch where f32 log K is good to about 1e-2 only
 WIDE_BAND = 40  # K6 past its former limit of band 32
+K6_BATCHES = (1, 4, 16, 64)  # phase 15's K6 batch table (the CLI's batch is 16)
 # operations a cell needs, as each kernel's arithmetic counts them (a
 # transcendental, a division or a compare counts as one):
 LA_EXP_OPS = 12  # m = e(1 + a + bg g), the closure recurrence, g', the sum, exp
@@ -431,10 +435,11 @@ def graph_ms(fn, reps: int) -> float:
     return cuda_ms(graph.replay, 3) / reps
 
 
-def traced_ms(fn, reps: int):
-    """Mean device milliseconds a call of ``fn`` that a CUDA graph cannot
-    capture: the summed time of the device's events in ``reps`` calls under
-    torch.profiler; None if the trace holds none."""
+def kernel_trace(fn, reps: int, kernel: str):
+    """(device ms a call, launches a call of the kernels whose name holds
+    ``kernel``) over ``reps`` calls of ``fn`` under torch.profiler, for calls
+    that a CUDA graph cannot capture; (None, None) if the trace holds no
+    device event."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -444,7 +449,11 @@ def traced_ms(fn, reps: int):
             fn()
         torch.cuda.synchronize()
     total, _ = device_us(prof)
-    return total / 1e3 / reps if total > 0.0 else None
+    if total == 0.0:
+        return None, None
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key)
+    return total / 1e3 / reps, n / reps
 
 
 def la_edge_cases(rng: np.random.Generator, dev) -> list:
@@ -795,9 +804,14 @@ def device_busy(engine, n_ex: int, kernel: str, batches: int = 20) -> str:
     total, named = device_us(prof, kernel)
     if total == 0.0:
         return "device time not measured (the trace holds no kernel events)"
+    # host reads of a device value (.item(), int(t)) wait for the device
+    waits = [e for e in prof.key_averages() if e.key == "aten::_local_scalar_dense"]
+    wait_us = sum(e.cpu_time_total for e in waits)
     return (f"traced wall {wall_us / 1e3:.2f} ms, device {total / 1e3:.2f} ms "
             f"({100 * total / wall_us:.1f}% busy), {kernel} {named / 1e3:.2f} ms "
-            f"({100 * named / total:.1f}% of device time)")
+            f"({100 * named / total:.1f}% of device time); host reads of device values "
+            f"{wait_us / 1e3:.2f} ms in {sum(e.count for e in waits)} calls "
+            f"({100 * wait_us / wall_us:.1f}% of the wall)")
 
 
 def k6_cases(dev, feats: dict, rng: np.random.Generator) -> list:
@@ -2979,9 +2993,25 @@ def main() -> int:
         lambda: full_stem_banded_log_reference(*k6_ops, *FULL_WEIGHTS, band=FULL_BAND), 3)
     k6_bound_ms, k6_by = k6_bound(k6_ops, FULL_BAND)
     # K6's wrapper reads max(lx) on the host, so no graph captures it
-    k6_dev = traced_ms(lambda: full_stem_banded_log(*k6_ops, *FULL_WEIGHTS, band=FULL_BAND), 2)
+    k6_dev, k6_n = kernel_trace(
+        lambda: full_stem_banded_log(*k6_ops, *FULL_WEIGHTS, band=FULL_BAND), 2, "full_stem_level")
     report["K6"].update(ms=k6_ms, device_ms=k6_dev, plain_ms=k6_plain_ms, bound_ms=k6_bound_ms,
-                        bound_by=k6_by)
+                        bound_by=k6_by, launches_a_call=k6_n)
+    # a call's time at each batch of the first pairs of 64 (the CLI runs 16)
+    n_ex = len(full_feats["length"])
+    bix = np.random.default_rng(SEED + 9).integers(0, n_ex, (2, max(K6_BATCHES)))
+    bx, by = pick(full_feats, bix[0], dev), pick(full_feats, bix[1], dev)
+    bops = [bx["codes"], by["codes"], bx["length"], by["length"], bx["bp"], by["bp"]]
+    rows = []
+    for bsz in K6_BATCHES:
+        sub = [o[:bsz].contiguous() for o in bops]
+        full_stem_banded_log(*sub, *FULL_WEIGHTS, band=FULL_BAND)
+        ms = cuda_ms(lambda: full_stem_banded_log(*sub, *FULL_WEIGHTS, band=FULL_BAND), 3)
+        big = torch.maximum(sub[2], sub[3]).double()
+        rows.append(f"B={bsz} {ms:.3f} ms a call, {ms / bsz:.3f} a pair (mean max(lx, ly) "
+                    f"{float(big.mean()):.1f})")
+    print(f"times on {smi}: K6 band {FULL_BAND} n={bops[0].shape[1]} by batch: "
+          + "; ".join(rows))
     w_ms, w_plain_ms = timed_pair(
         lambda: full_stem_banded_log(*k6_wide, *FULL_WEIGHTS, band=WIDE_BAND),
         lambda: full_stem_banded_log_reference(*k6_wide, *FULL_WEIGHTS, band=WIDE_BAND), 1)
@@ -3004,7 +3034,7 @@ def main() -> int:
                                         log_values=True), FULL_N, "full_stem_level")
     print(f"-b {FULL_BAND} Gram, first 20 batches traced: {busy}")
     k6_dev_s = "not measured" if k6_dev is None else f"{k6_dev:.3f}"
-    print(f"times on {smi}: K6 {k6_ms:.3f} ms (device {k6_dev_s}) vs plain {k6_plain_ms:.3f} "
+    print(f"times on {smi}: K6 {k6_ms:.3f} ms (device {k6_dev_s}, {k6_n} launches a call) vs plain {k6_plain_ms:.3f} "
           f"ms, bound {k6_bound_ms:.4f} ms by {k6_by} (B=16 n={k6_ops[0].shape[1]} "
           f"band={FULL_BAND}, lx != ly); -b {FULL_BAND} Gram {n_full_pairs / full_gram_s:.1f} pairs/s "
           f"({full_gram_s:.2f} s, batch 16); train flow {full_train_s:.2f} s, predict flow "
@@ -3036,7 +3066,7 @@ def main() -> int:
                "stem_kernel_tpu/ops/pallas_full_stem.py:426"),
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    extra = ("device_ms", "max_rel_err", "mode", "shape", "max_abs_err_lanes",
+    extra = ("device_ms", "max_rel_err", "mode", "shape", "launches_a_call", "max_abs_err_lanes",
              "max_abs_err_one_warp",
              "max_rel_err_lanes", "max_rel_err_one_warp")
     # K1's library_ms is the f32 torch.bmm chain at the same pair-trips
