@@ -8,18 +8,20 @@ Phases (the first failure exits non-zero; nothing is caught):
 
 1. environment: the card's name and power limit (nvidia-smi), CUDA, TF32 off;
 2. build: the CUDA library from ``stem_kernel_torch/csrc``, and the
-   registers, spills and barriers ptxas gave K1's cluster and strip kernels;
+   registers, spills and barriers ptxas gave K1's cluster and tile kernels;
 3. K1 parity: the closure fixed point through its wrapper in each product
    mode ("highest" f32, "high" 3xTF32, "default" bf16) against its plain
    torch version in the same mode, on both routes (``cluster_route``: the
-   cluster kernel, the per-product route's strip kernel), on real DAG
+   cluster kernel, the per-product route's tile kernel), on real DAG
    features of the corpus (B=256 pairs within the most populous node
    bucket, across it and the next, and across the smallest and it, as the
    Gram's cross-bucket blocks run them; true per-pair trip counts) and on
    random operands of 64 and 40 x 56 nodes (the cluster kernel, padded and
-   rectangular), 112 x 48 (the strip kernel, padded and rectangular), 256,
-   320 x 288 (the 3xTF32 strip spilled to device memory) and 528 x 96 nodes
-   (the strip spilled in every mode): every mode within rel 1e-4; bf16 also at least 10x
+   rectangular), 112 x 48 (the tile kernel, padded and rectangular, one CTA
+   a pair), 64 x 256 (its 64-row tile), 256, 512 x 512, 320 x 288 and 528 x
+   96 nodes (the 3xTF32 strip spilled to device memory), and 1232 x 96 (the
+   first Nx at which the wrapper spills the strip in every mode): every
+   mode within rel 1e-4; bf16 also at least 10x
    nearer plain bf16 than plain f32; each mode's error against the plain f32
    version is printed, and "high" must stay within JAX "high"'s own 9.0e-4
    of f32;
@@ -33,7 +35,11 @@ Phases (the first failure exits non-zero; nothing is caught):
    the two folds within 5e-4 BPP;
 5. every block shape of the stem Gram on the per-product route in each mode
    (beside the cluster kernel up to 64 nodes, where it runs: the times that
-   place the wrapper's cut-over) and the library chains below; each route in the three modes at the shape
+   place the wrapper's cut-over) and the library chains below, with the
+   block's pairs, its train launches, the tile kernel's geometry and its
+   ratio to the f32 chain in "high" and to the bf16 chain in "default", and
+   each mode's time and the chains' summed over the train Gram's
+   per-product launches; each route in the three modes at the shape
    it takes most often on the path (CUDA events; B=256), against the plain
    f32 version, with its device time (CUDA graph), its bound on the mode's
    unit, its geometry and the library chain (the same pair-trips' products
@@ -1844,7 +1850,7 @@ def slice5_phase(dev, smi: str, reset_counts, counts, corpus: tuple, stem: dict,
         events = json.load(f)["traceEvents"]
     k1_events = {r: [e for e in events if e.get("cat") == "kernel" and kern in e.get("name", "")]
                  for r, kern in (("cluster", "fixed_point_cluster"),
-                                 ("per-product", "fixed_point_strips"))}
+                                 ("per-product", "fixed_point_tiles"))}
     same = np.array_equal(read_precomputed(p("traced.dat"))[1],
                           read_precomputed(p("untraced.dat"))[1])
     print(f"stem_kernel_lite -n --trace-dir, {2 * TRACE_N} sequences: {traced_s:.2f} s "
@@ -2249,11 +2255,12 @@ def main() -> int:
     # ---- 2. build ----
     _, build_s = build()
     print(f"build: {build_s:.1f} s")
-    # K1's kernels: cluster <mode, m16 count>, strips <mode, spill>; mode 0
-    # f32, 1 3xTF32, 2 bf16
+    # K1's kernels: cluster <mode, m16 count>, tiles <mode, rows tile>; mode
+    # 0 f32, 1 3xTF32, 2 bf16 (the tile kernel: 168 registers a thread at
+    # launch, the producer warpgroup giving 128 of its to the consumers)
     log = (BUILD_DIR / PTXAS_LOG).read_text().split("Compiling entry function")
     for entry in log[1:]:
-        for kern, label in (("fixed_point_clusterILi", "cluster"), ("fixed_point_stripsILi", "strip")):
+        for kern, label in (("fixed_point_clusterILi", "cluster"), ("fixed_point_tilesILi", "tile")):
             if kern in entry.splitlines()[0]:
                 targs = entry.split(kern)[1].split("EEE")[0].replace("ELb", ", ").replace("ELi", ", ")
                 use = [ln.split(":")[-1].strip() if "Used" in ln else ln.strip()
@@ -2303,15 +2310,19 @@ def main() -> int:
         cases.append((f"corpus B={K1_BATCH} Nx={bx[1]['V'].shape[1]} Ny={by[1]['V'].shape[1]}",
                       *corpus_block(bx, by)))
     # shapes the corpus blocks above may not reach: the cluster kernel at 64
-    # and on a rectangular padded pair, the strip kernel on a rectangular
-    # padded pair, at 256 nodes, past 256 (the strip spills in 3xTF32) and
-    # at Nx = 528 (the strip spills in every mode)
+    # and on a rectangular padded pair, the tile kernel on a rectangular
+    # padded pair (one CTA), at 64 x 256 (its 64-row tile), at 256 and 512
+    # nodes, past 256 (the strip spills in 3xTF32) and at 1232 x 96 (it
+    # spills in every mode)
     for bsz, nx, ny, seed in ((64, 64, 64, 11), (64, 40, 56, 15), (64, 112, 48, 14),
-                              (64, 256, 256, 12), (16, 320, 288, 13), (4, 528, 96, 16)):
+                              (64, 64, 256, 17), (64, 256, 256, 12), (8, 512, 512, 18),
+                              (16, 320, 288, 13), (4, 528, 96, 16), (4, 1232, 96, 19)):
         cases.append((f"random B={bsz} Nx={nx} Ny={ny}", k1_random(bsz, nx, ny, 20, seed, dev), 20))
+    for nx, ny in ((320, 288), (528, 96), (512, 512)):
+        check(strips_info(nx, ny, "high")["spill"], f"the high strip at {nx} x {ny} stayed")
     for prec in MODES:
-        check(strips_info(528, 96, prec)["spill"] == 1, f"the {prec} strip at Nx=528 stayed")
-    check(strips_info(320, 288, "high")["spill"] == 1, "the high strip at 320 x 288 stayed")
+        check(strips_info(1232, 96, prec)["spill"], f"the {prec} strip at 1232 x 96 stayed")
+    check(strips_info(64, 256, "high")["rows"] == 64, "the tile kernel took 128 rows at Nx = 64")
     report = {"K1": {"max_abs_err": 0.0, "max_rel_err": 0.0},
               "K1w": {"max_abs_err": 0.0, "max_rel_err": 0.0}}
     k1_modes = {}  # (route, precision) -> (max rel against its plain version, against f32)
@@ -2431,6 +2442,9 @@ def main() -> int:
     # runs (up to 64 nodes) on the same batch, and the library chains.
     # These times place cluster_route's cut-over.
     picks = {}  # route -> (train launches, operands, iters) of its busiest shape in "high"
+    # ms over the train Gram's per-product launches: each mode, each chain
+    sums = dict.fromkeys([*MODES, "f32 chain", "tf32 chain", "bf16 chain"], 0.0)
+    wide_launches = 0
     for i, bx in enumerate(by_nodes):
         for by in by_nodes[i:]:
             blk, blk_iters = corpus_block(bx, by)
@@ -2439,12 +2453,18 @@ def main() -> int:
             batches = -(-nb // K1_BATCH)  # the train Gram's launches at this shape
             it = torch.clamp(blk[-1], max=blk_iters).contiguous()
             taken = "cluster" if cluster_route(nx, ny) else "per-product"
-            parts = []
+            parts, pp_times = [], {}
             for prec, mode in MODES.items():
                 pp = lambda: per_product_route(*blk[:-1], it, precision=prec)  # noqa: B023,E731
                 if taken != "cluster":
                     pp()
-                    parts.append(f"{prec} ({mode}): per-product {cuda_ms(pp, 2):.3f} ms")
+                    pp_times[prec] = cuda_ms(pp, 2)
+                    g = strips_info(nx, ny, prec)
+                    parts.append(f"{prec} ({mode}): per-product {pp_times[prec]:.3f} ms "
+                                 f"[rows tile {g['rows']}, strips of {g['strip']} columns, "
+                                 f"{g['ctas']} CTAs a pair, no multicast, "
+                                 f"{g['stages']} stages, strip "
+                                 f"{'spilled' if g['spill'] else 'in shared memory'}]")
                     continue
                 k_ms, pp_ms = timed_pair(
                     lambda: cluster_kernel(*blk[:-1], it, precision=prec),  # noqa: B023
@@ -2455,11 +2475,22 @@ def main() -> int:
                 picks[taken] = (batches, blk, blk_iters)
             chains = (chain_ms(blk, blk_iters)[0], chain_ms(blk, blk_iters, tf32=True)[0],
                       chain_ms(blk, blk_iters, torch.bfloat16)[0])
-            print(f"times on {smi}: K1 block Nx={nx} Ny={ny} (B={K1_BATCH}, trips "
+            ratios = ""
+            if taken != "cluster":
+                wide_launches += batches
+                for key, ms in (*pp_times.items(), *zip(("f32 chain", "tf32 chain", "bf16 chain"),
+                                                        chains)):
+                    sums[key] += ms * batches
+                ratios = (f"; kernel / chain: high / f32 {pp_times['high'] / chains[0]:.3f}, "
+                          f"default / bf16 {pp_times['default'] / chains[2]:.3f}")
+            print(f"times on {smi}: K1 block Nx={nx} Ny={ny} ({nb} pairs, B={K1_BATCH}, trips "
                   f"{int(blk[-1].min())}..{int(blk[-1].max())}, {batches} train launches, the "
                   f"wrapper takes {taken}): {'; '.join(parts)}; library chain at the same "
                   f"pair-trips: f32 {chains[0]:.3f}, tf32 one pass {chains[1]:.3f}, bf16 "
-                  f"{chains[2]:.3f} ms")
+                  f"{chains[2]:.3f} ms{ratios}")
+    print(f"times on {smi}: K1 per-product route summed over the train Gram's "
+          f"{wide_launches} per-product launches (each block's B={K1_BATCH} "
+          f"time times its launches): " + ", ".join(f"{k} {v:.3f} ms" for k, v in sums.items()))
     # each route in each mode at the shape that takes it most often on the
     # path, against the plain f32 version (plain, kernel, kernel, plain) and
     # the library chain: the same pair-trips' products through torch.bmm
@@ -2480,8 +2511,10 @@ def main() -> int:
             else:
                 run = lambda: per_product_route(*r_args[:-1], r_it, precision=prec)  # noqa: B023,E731
                 geo = strips_info(nx, ny, prec)
-                how = (f"one launch, clusters of {geo['ctas']} CTAs, {geo['smem_bytes']} B shared "
-                       f"memory a CTA, {geo['active_pairs']} pairs active at once, strip "
+                how = (f"one launch, clusters of {geo['ctas']} CTAs, rows tile {geo['rows']}, "
+                       f"strips of {geo['strip']} columns, "
+                       f"{geo['stages']} TMA stages, {geo['smem_bytes']} B shared memory a CTA, "
+                       f"{geo['active_pairs']} pairs active at once, strip "
                        f"{'spilled' if geo['spill'] else 'in shared memory'}")
             k_ms, p_ms = timed_pair(
                 run, lambda: stem_fixed_point_reference(*r_args, max_iters=r_iters), 2)  # noqa: B023

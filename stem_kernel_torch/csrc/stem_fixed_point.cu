@@ -22,8 +22,8 @@
 // Route 1, stem_fixed_point_cluster: one launch for the whole fixed point
 // and the bilinear form, for max(Nx, Ny) <= 64 (Nx, Ny multiples of 16),
 // one CTA a pair.  (Past 64 nodes a pair's planes outgrow one CTA's shared
-// memory, and clusters of 4 or 16 CTAs a pair lost to route 2 at every such
-// shape of the stem Gram, PERF.md.)  The CTA holds NS, L, M, Vx, Ax, Vy, Ay
+// memory, and clusters of 4 or 16 CTAs a pair lost to an earlier route 2
+// at every such shape of the stem Gram, PERF.md.)  The CTA holds NS, L, M, Vx, Ax, Vy, Ay
 // in shared memory for the whole fixed point, plus two transposed planes
 // G1^T, G3^T (Ny x Nx): up to 166 KB, the operands read from device memory
 // once.  Each product is a plane A times a plane B^T, both K-contiguous:
@@ -63,53 +63,67 @@
 // fragments load float2) so that the fragment loads hit 32 distinct banks.
 // 8 warps each own one or two 16 MT x 16 output tiles and issue mma.sync.
 //
-// Route 2, stem_fixed_point_strips: every other pair, at any node count
+// Route 2, stem_fixed_point_tiles: every other pair, at any node count
 // (multiples of 16).  One launch for the whole fixed point and the bilinear
-// form.  A pair's columns are cut into strips J of 64; a cluster of
-// C = min(strips, 8) CTAs runs the pair, CTA r its strips r, r + C, ....
-// Each trip is two half-trips, each a pair-wide barrier (cluster.sync) apart:
+// form.  A pair's columns are cut into strips J of sn = 64 (128 in bf16 on
+// the 64-row tile, the one geometry where wider strips ran faster); a
+// cluster of C = min(strips, 8) CTAs runs the pair, CTA r its strips r,
+// r + C, ....  Each trip is two half-trips, each a pair-wide barrier
+// (cluster) apart:
 //
-//   A  S = M Vy[J,:]^T + L[:, J]  (Nx x 64, kept in shared memory as S^T)
+//   A  S = M Vy[J,:]^T + L[:, J]  (Nx x sn, the strip, kept as S^T)
 //      G2[:, J] = Vx S            (to device memory: every CTA reads all of G2)
 //   B  S = G2 Ay[J,:]^T
 //      M[:, J] = NS[:, J] * (Ax S)
 //
-// so G1 and G3 of the four-product form stay on the SM where the strip fits
-// (below), and the first trip skips M Vy^T (M = 0).  A CTA computes a product in tiles of 128 rows x
-// 64 columns, 8 warps of 32 x 32 (mma.sync; f32: 8 x 4 FFMA outputs a
-// thread), and streams A (and B, where it is not the strip) from L2 in
-// chunks of 32 through cp.async stages (two for 3xTF32, three otherwise).
-// Each thread converts the pieces it copied once they land: 3xTF32 splits
-// them into a hi plane (in place) and a lo plane, bf16 rounds them into a
-// bf16 plane; fragments then load by ldmatrix with no further arithmetic.
-// The strip is written converted the same way.  The epilogue operand
-// (L or NS) is staged by cp.async before its product, and each output tile
-// leaves through shared memory as whole rows.  Where the strip does not
-// fit shared memory (Nx past 160 in 3xTF32, whose hi and lo planes take
-// twice the room; past 432 in f32 and 512 in bf16) it spills to a
-// (B, Ny, Nx) buffer in device memory and streams back like B.
+// and the first trip skips M Vy^T (M = 0).  Every operand a product reads
+// is in the mode's form before the product runs, so no product converts:
+// a prologue (each CTA a 1/C share of its pair) writes Vx, Ax, Vy and Ay
+// once a call into scratch, as TF32 hi and lo planes (3xTF32) or a bf16
+// plane (bf16); f32 reads the inputs as they are.  The epilogues write G2,
+// M and the strip in the same form (M also in f32 at the last trip, for
+// the bilinear form); rounding once or each trip gives the same bits.
 //
-// What bounds route 2: at 128 x 256 the products need 2.5 ms as three TF32
-// passes and 0.43 ms in bf16 (B = 256, 20-50 trips), the operands' bytes
-// under 0.1 ms, so it is bound by operations.  What holds it back (PERF.md;
-// in-kernel clock counters in development builds on the card): mma.sync
-// and its ldmatrix loads take about half of a CTA's time, waiting for and
-// converting chunks about a quarter, the epilogues and the cluster
-// barriers the rest.  Each CTA streams the whole of M (or G2) and Vx (or Ax)
-// from L2 every half-trip, C times a pair, and with 220-240 registers a
-// thread an SM holds one CTA, 8 warps.  Multicasting those tiles across
-// the cluster (TMA) is the next step.  wgmma (m64n64 a warpgroup, from the
-// same staged tiles) gave the same values in development builds on the
-// card but did not win: on unswizzled core-matrix tiles slower in every
-// mode, on 128-byte-swizzled ones faster at 128 x 128 and 256 x 256 under
-// "high" and slower at 128 x 256 and in f32.  Its chunks of 32 k leave
-// each wgmma batch short; longer chunks want the shared memory the strip
-// holds.
+// A CTA is three warpgroups.  One thread of the producer warpgroup
+// (setmaxnreg down to 40 registers) keeps a ring of 2-8 stages full by TMA:
+// a stage is one 128-byte k chunk of the A tile (M, G2, Vx or Ax; a rows
+// tile of 64 or 128) and of the B tile (sn rows of Vy or Ay, or of the
+// spilled strip), 128-byte swizzled, landing on the stage's mbarrier.  The
+// two consumer warpgroups (232 registers) issue wgmma on the stages: bf16
+// m64nNk16, 3xTF32 three m64nNk8 passes a k step (lo*hi, hi*lo, hi*hi),
+// N = sn (rows tile 128: a warpgroup takes 64 rows) or sn / 2 (rows tile
+// 64, at Nx <= 64: a warpgroup takes half the columns, so no warp idles
+// at Nx = 64); f32 ("highest") FFMA
+// from the same swizzled tiles.  Each consumer warp releases a stage to the
+// producer (mbarrier) once its products from it are done, a chunk later
+// where the ring holds more than 4 stages.  The epilogue operand (L or NS)
+// is loaded into registers before the product it follows, so it lands
+// while the product runs (loaded after it, with scalar stores and every
+// release a chunk late, 128 x 256 ran 1.7x as long in "high").  The strip
+// stays on the SM, swizzled as wgmma's B operand, where shared memory
+// leaves at least 3 stages beside it; else it spills to a (B, planes, Ny,
+// Nx) buffer and streams back by TMA like B.  The geometry (rows tile,
+// strip columns, CTAs a pair, stages, spill, lag) is chosen in one place,
+// stem_kernel_torch/ops/stem_fixed_point.py:tile_geometry, and checked here.
+//
+// What bounds route 2: at 128 x 256, B = 256, the products need 2.51 ms as
+// three TF32 passes and 0.43 ms in bf16, the operands' bytes under 0.1 ms,
+// so it is bound by operations; it runs at 3.5x that in "high" and 10x in
+// bf16 (PERF.md).  A half-trip is short (12 chunks at 128 x 256), so its
+// start (the cluster barrier, the first TMA loads) and its end (the stores
+// of G2 or M) weigh, and a 128 x 64 tile reads 48 KB of stage from L2 for
+// 1.6 MFLOP (3xTF32).  Tried on the card and left out: the A tiles
+// multicast by TMA across the pair's cluster (each CTA one box of the tile,
+// every arrival on every CTA's barrier) was 1.2-2x slower at every block
+// shape and mode, since each refill waits for the slowest CTA of the
+// cluster; the route's former strip kernel (mma.sync from cp.async chunks
+// converted in the loop) was 1.4-2.2x slower in "high".
 //
 // C interface: every entry point returns cudaGetLastError() after its last
 // launch (or the first error), so the caller can raise.
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -513,492 +527,666 @@ bool valid_shape(int nx, int ny, int mode) {
 }
 
 // ===================================================================
-// Route 2: a pair's column strips on a cluster, one launch (the rest)
+// Route 2: a pair's column strips on a cluster, TMA rings, wgmma (the
+// rest; see the header)
 // ===================================================================
 
-constexpr int SBM = 128;           // rows of a CTA's product tile
-constexpr int SBN = 64;            // columns of a strip
-constexpr int SBK = 32;            // depth of a staged chunk
-constexpr int STHREADS = 256;      // 8 warps: 4 along the rows x 2 along the columns
-constexpr int SWARPS = STHREADS / 32;
-constexpr int MAX_STRIP_CTAS = 8;  // CTAs a pair at most: the portable cluster size
 constexpr int MAX_SMEM = 232448;   // dynamic shared memory a CTA can opt into
+constexpr int TTHREADS = 384;     // consumer warpgroups 0 and 1, the producer warpgroup 2
+constexpr int TCONSUMERS = 256;
+constexpr int TROW = 128;         // bytes of k a staged row holds: one 128-byte swizzle atom
+constexpr int TMAX_STAGES = 8;
+constexpr int TMAX_CTAS = 8;      // the portable cluster size
+constexpr int TRAP_NS = 2000000000;  // a barrier wait this long is a fault: trap, do not hang
 
-// chunks staged at once, one multiplied and the rest landing: 3xTF32's
-// second plane leaves room for two
-__host__ __device__ constexpr int stages_of(int mode) { return mode == kTF32x3 ? 2 : 3; }
+__host__ __device__ constexpr int planes_of(int mode) { return mode == kTF32x3 ? 2 : 1; }
+__host__ __device__ constexpr int esize_of(int mode) { return mode == kBF16 ? 2 : 4; }
 
-// A CTA's buffers in dynamic shared memory, offsets in floats.  A chunk is
-// staged as f32 (cp.async) and converted once, in place, by the thread that
-// copied it: 3xTF32 overwrites it with its hi part and writes the lo part
-// to a second plane; bf16 writes a bf16 plane.  The strip S^T holds what the
-// next product reads: f32, hi and lo planes, or bf16.  Rows are padded (4
-// floats, 8 bf16) so that fragment loads hit distinct banks.
-struct StripLayout {
-  int ldk;  // row stride (floats) of an f32 / hi / lo stage: SBK + 4
-  int ldh;  // row stride (bf16) of a bf16 stage: SBK + 8
-  int ldt;  // row stride of the strip: floats nx + 4, or bf16 nx + 8
-  int lde;  // row stride (floats) of the epilogue tile: SBN + 4
-  int a, b, alo, blo, ah, bh;  // stages: f32 or hi, lo (3xTF32), bf16 (bf16)
-  int st, stlo;                // the strip: f32, bf16 or hi, and lo (3xTF32)
-  int e, part, total;          // the epilogue tile, the bilinear partials
+// A CTA's dynamic shared memory, offsets in bytes from a 1024-aligned base.
+// A stage holds the A tile (rt rows) and the B tile (sn rows) of one
+// 128-byte k chunk, each plane (3xTF32: hi, lo) a 128-byte-swizzled tile;
+// the strip S^T (sn columns: 64 or 128), where it stays on the SM, one
+// such sn-row tile a k chunk.
+struct TileLayout {
+  int a_plane, b_plane, stage, strip_plane;
+  int stages_off, strip_off, bar_off, part_off, total;
 };
 
-__host__ __device__ inline StripLayout strip_layout(int nx, int mode, bool spill) {
-  StripLayout s;
-  s.ldk = SBK + 4;
-  s.ldh = SBK + 8;
-  s.ldt = mode == kBF16 ? nx + 8 : nx + 4;
-  s.lde = SBN + 4;
-  const bool tf = mode == kTF32x3, bf = mode == kBF16;
-  const int NSTAGE = stages_of(mode);
+__host__ __device__ inline TileLayout tile_layout(int nx, int mode, int rt, int sn, int stages,
+                                                  bool spill) {
+  const int p = planes_of(mode), ke = TROW / esize_of(mode);
+  TileLayout t;
+  t.a_plane = rt * TROW;
+  t.b_plane = sn * TROW;
+  t.stage = p * (t.a_plane + t.b_plane);
+  t.strip_plane = ((nx + ke - 1) / ke) * sn * TROW;
   int o = 0;
-  s.a = o;   o += NSTAGE * SBM * s.ldk;
-  s.b = o;   o += NSTAGE * SBN * s.ldk;
-  s.alo = o; o += tf ? NSTAGE * SBM * s.ldk : 0;
-  s.blo = o; o += tf ? NSTAGE * SBN * s.ldk : 0;
-  s.ah = o;  o += bf ? NSTAGE * SBM * s.ldh / 2 : 0;
-  s.bh = o;  o += bf ? NSTAGE * SBN * s.ldh / 2 : 0;
-  const int plane = bf ? SBN * s.ldt / 2 : SBN * s.ldt;
-  s.st = o;   o += spill ? 0 : plane;
-  s.stlo = o; o += spill || !tf ? 0 : plane;
-  s.e = o;    o += SBM * s.lde;
-  s.part = o; o += 16;  // SWARPS warp partials, then the CTA's partial at [SWARPS]
-  s.total = o;
-  return s;
+  t.stages_off = o; o += stages * t.stage;
+  t.strip_off = o;  o += spill ? 0 : p * t.strip_plane;
+  t.bar_off = o;    o += 8 * (2 * TMAX_STAGES + 1);  // full, empty, strip ready
+  t.part_off = o;   o += 4 * 16;
+  t.total = o + 1024;  // the base is aligned up to 1024 bytes
+  return t;
 }
 
-struct StripParams {
-  const float *ns, *vx, *vy, *ax, *ay, *l, *ux, *uy;
+// Tensor maps (3-D: k, rows, pair x plane) over the operands in the mode's
+// form, and the plain pointers the prologue and the epilogues use.
+struct TileParams {
+  CUtensorMap tm_vx, tm_ax, tm_m, tm_g2;  // A operands: boxes of rt rows
+  CUtensorMap tm_vy, tm_ay, tm_st;        // B operands: boxes of sn rows (tm_st: spill only)
+  const float *vx, *ax, *vy, *ay, *ns, *l, *ux, *uy;
   const int* iters;
-  float *m, *g2, *st, *out;
-  int nx, ny, csize, nstrips;
+  void *cvx, *cax, *cvy, *cay;  // Vx, Ax, Vy, Ay in the mode's form (3xTF32, bf16)
+  void *mc, *g2c, *st;          // M, G2 and the spilled strip in the mode's form
+  float *mf, *out;              // f32 M for the bilinear form (mc in f32), the values
+  int nx, ny, rt, sn, csize, stages, spill, lag;
 };
 
-// 16 bytes global -> shared, through L2 only (.cg: a peer's writes of this
-// launch are never read from a stale L1 line); zero-filled when !full
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool full) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(full ? 16 : 0));
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// wait for the phase of `parity` to complete; trap after TRAP_NS (a
+// protocol fault), so that a fault ends the launch with an error
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try(bar, parity))
+    if (global_ns() - t0 > TRAP_NS) __trap();
+}
+
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major, 128-byte-swizzled tile
+// (8-row groups 1024 bytes apart); k advances by adding bytes >> 4
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
 
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// four 8 x 8 matrices of 16-bit pairs from shared memory: lane l gives the
-// address of row l % 8 of matrix l / 8, and gets word l % 4 of row l / 4 of
-// each matrix
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// rows [r0, r0 + ROWS) and columns [k0, k0 + COLS) of a row-major plane
-// (row stride ld) into shared memory (row stride lds); rows at or past
-// rlim and columns at or past klim are zero.  Thread t copies the 16-byte
-// pieces t, t + STHREADS, ...
-template <int ROWS, int COLS>
-__device__ __forceinline__ void stage(float* dst, int lds, const float* src, int ld, int r0,
-                                      int rlim, int k0, int klim) {
-  constexpr int PER_ROW = COLS / 4;
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < ROWS * PER_ROW / STHREADS; ++i) {
-    const int q = threadIdx.x + i * STHREADS;
-    const int r = q / PER_ROW, c = (q % PER_ROW) * 4;
-    const bool ok = r0 + r < rlim && k0 + c < klim;
-    cp_async16(dst + r * lds + c, ok ? src + (size_t)(r0 + r) * ld + k0 + c : src, ok);
-  }
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// The pieces this thread staged with stage<ROWS, SBK> at f32 offset `raw`,
-// converted for MODE: 3xTF32 writes hi over them and lo at `lo`; bf16
-// writes them rounded at bf16 offset `h` (row stride s.ldh).
-template <int MODE, int ROWS>
-__device__ __forceinline__ void convert(float* sm, const StripLayout& s, int raw, int lo, int h) {
-  constexpr int PER_ROW = SBK / 4;
-#pragma unroll
-  for (int i = 0; i < ROWS * PER_ROW / STHREADS; ++i) {
-    const int q = threadIdx.x + i * STHREADS;
-    const int r = q / PER_ROW, c = (q % PER_ROW) * 4;
-    float4* p = reinterpret_cast<float4*>(sm + raw + r * s.ldk + c);
-    const float4 v = *p;
-    if (MODE == kTF32x3) {
-      uint4 hi, lw;
-      split_tf32(v.x, hi.x, lw.x);
-      split_tf32(v.y, hi.y, lw.y);
-      split_tf32(v.z, hi.z, lw.z);
-      split_tf32(v.w, hi.w, lw.w);
-      *reinterpret_cast<uint4*>(p) = hi;
-      *reinterpret_cast<uint4*>(sm + lo + r * s.ldk + c) = lw;
-    } else if (MODE == kBF16) {
-      uint2 w;
-      w.x = pack_bf16(make_float2(v.x, v.y));
-      w.y = pack_bf16(make_float2(v.z, v.w));
-      *reinterpret_cast<uint2*>(reinterpret_cast<__nv_bfloat16*>(sm + h) + r * s.ldh + c) = w;
+// acc (m64 x n64: 32 floats a thread; n32: 16) += A B^T, both from
+// 128-byte-swizzled shared memory (descriptors)
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db));
+}
+
+// The consumer thread's outputs: element i of acc is row row(i), column
+// col(i) of the CTA's rt x sn tile.  Warpgroup w takes NW columns: rows 64 w
+// and all sn columns (rt 128, NW = sn), or all 64 rows and columns NW w (rt
+// 64, NW = sn / 2).
+// Tensor cores: the wgmma accumulator layout; f32: rows tr + 8 v, columns
+// tc + 16 u.
+template <int MODE, int RT, int NW>
+struct Frag {
+  static constexpr int NACC = NW / 2;
+  static constexpr int NU = NACC / 8;  // f32: columns a thread
+  int r0, c0, g, q, wi;
+  __device__ Frag(int t, int wg) {
+    r0 = RT == 128 ? 64 * wg : 0;
+    c0 = RT == 128 ? 0 : NW * wg;
+    if (MODE == kF32) {
+      g = t >> 4;  // tr
+      q = t & 15;  // tc
+      wi = 0;
+    } else {
+      wi = t >> 5;
+      g = (t & 31) >> 2;
+      q = t & 3;
     }
   }
-}
-
-// acc[mt][nt] += A[16 mt + 0..15, 0:klen] B[8 nt + 0..7, 0:klen]^T for one
-// warp's 32 x 32 tile, fragments by ldmatrix from converted planes: a (and
-// al) at the tile's first row, b (and bl) at its first B row, k contiguous;
-// row strides lda, ldb in 32-bit words (3xTF32) or bf16 elements (bf16).
-// klen % 16 == 0.
-template <int MODE>
-__device__ __forceinline__ void warp_mma(float (&acc)[2][4][4], const void* a, const void* al,
-                                         int lda, const void* b, const void* bl, int ldb,
-                                         int klen, int lane) {
-  const int ar = (lane & 7) + 8 * ((lane >> 3) & 1), ak = lane >> 4;  // A: matrix rows, k half
-  const int bn = (lane & 7) + 8 * (lane >> 4), bk = (lane >> 3) & 1;  // B: matrix rows, k half
-  if (MODE == kBF16) {
-    const __nv_bfloat16* pa = static_cast<const __nv_bfloat16*>(a);
-    const __nv_bfloat16* pb = static_cast<const __nv_bfloat16*>(b);
-#pragma unroll 2
-    for (int k = 0; k < klen; k += 16) {
-      uint32_t af[2][4], bf[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) ldsm_x4(af[mt], pa + (16 * mt + ar) * lda + k + 8 * ak);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) ldsm_x4(bf[np], pb + (16 * np + bn) * ldb + k + 8 * bk);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const uint32_t bb[2] = {bf[nt >> 1][2 * (nt & 1)], bf[nt >> 1][2 * (nt & 1) + 1]};
-          mma_bf16(acc[mt][nt], af[mt], bb);
-        }
-    }
-  } else {
-    const uint32_t* pa = static_cast<const uint32_t*>(a);
-    const uint32_t* pal = static_cast<const uint32_t*>(al);
-    const uint32_t* pb = static_cast<const uint32_t*>(b);
-    const uint32_t* pbl = static_cast<const uint32_t*>(bl);
-#pragma unroll 2
-    for (int k = 0; k < klen; k += 8) {
-      uint32_t ah[2][4], alo[2][4], bh[2][4], blo[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int off = (16 * mt + ar) * lda + k + 4 * ak;
-        ldsm_x4(ah[mt], pa + off);
-        ldsm_x4(alo[mt], pal + off);
-      }
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        const int off = (16 * np + bn) * ldb + k + 4 * bk;
-        ldsm_x4(bh[np], pb + off);
-        ldsm_x4(blo[np], pbl + off);
-      }
-      // pass by pass over the 8 tiles: mma.sync is issued in program order,
-      // so a tile's three dependent passes stand 8 products apart
-#pragma unroll
-      for (int pass = 0; pass < 3; ++pass)
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) {
-            const uint32_t(&bs)[2][4] = pass == 1 ? blo : bh;
-            const uint32_t b2[2] = {bs[nt >> 1][2 * (nt & 1)], bs[nt >> 1][2 * (nt & 1) + 1]};
-            mma_tf32(acc[mt][nt], pass == 0 ? alo[mt] : ah[mt], b2);
-          }
-    }
+  __device__ __forceinline__ int row(int i) const {
+    return MODE == kF32 ? r0 + g + 8 * (i / NU) : r0 + 16 * wi + g + 8 * ((i >> 1) & 1);
   }
-}
+  __device__ __forceinline__ int col(int i) const {
+    return MODE == kF32 ? c0 + q + 16 * (i % NU) : c0 + 8 * (i >> 2) + 2 * q + (i & 1);
+  }
+};
 
-// f32: acc[v >> 2][v & 3][u] += sum_k A[16 v][k] B[16 u][k] over k < klen, FFMA in
-// k order; a and b at the thread's first row of each (row strides lda, ldb)
-__device__ __forceinline__ void thread_ffma(float (&acc)[2][4][4], const float* a, int lda,
-                                            const float* b, int ldb, int klen) {
+// f32: acc[8 v + u] += sum over the chunk's 32 k of A[tr + 8 v] B[tc + 16 u],
+// FFMA in k order, from 128-byte-swizzled tiles (a: the warpgroup's first
+// A row, b: its first B row)
+template <int NU>
+__device__ __forceinline__ void ffma_chunk(float (&acc)[8 * NU], const uint8_t* a,
+                                           const uint8_t* b, int tr, int tc) {
 #pragma unroll 2
-  for (int k = 0; k < klen; k += 4) {
-    float4 av[8], bv[4];
+  for (int c = 0; c < 8; ++c) {
+    float4 av[8], bv[NU];
 #pragma unroll
-    for (int v = 0; v < 8; ++v) av[v] = *reinterpret_cast<const float4*>(a + 16 * v * lda + k);
+    for (int v = 0; v < 8; ++v)
+      av[v] = *reinterpret_cast<const float4*>(a + (tr + 8 * v) * TROW + ((c ^ (tr & 7)) << 4));
 #pragma unroll
-    for (int u = 0; u < 4; ++u) bv[u] = *reinterpret_cast<const float4*>(b + 16 * u * ldb + k);
+    for (int u = 0; u < NU; ++u) {
+      const int r = tc + 16 * u;
+      bv[u] = *reinterpret_cast<const float4*>(b + r * TROW + ((c ^ (r & 7)) << 4));
+    }
 #pragma unroll
     for (int v = 0; v < 8; ++v)
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float x = acc[v >> 2][v & 3][u];
+      for (int u = 0; u < NU; ++u) {
+        float x = acc[v * NU + u];
         x = fmaf(av[v].x, bv[u].x, x);
         x = fmaf(av[v].y, bv[u].y, x);
         x = fmaf(av[v].z, bv[u].z, x);
         x = fmaf(av[v].w, bv[u].w, x);
-        acc[v >> 2][v & 3][u] = x;
+        acc[v * NU + u] = x;
       }
   }
 }
 
-// f(i, n, value) for each element of the CTA's SBM x SBN tile this thread
-// holds: i a row of the tile, n a column of the strip
-template <int MODE, typename F>
-__device__ __forceinline__ void each_element(const float (&acc)[2][4][4], F f) {
-  if (MODE == kF32) {
-    const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
-#pragma unroll
-    for (int v = 0; v < 8; ++v)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) f(tr + 16 * v, tc + 16 * u, acc[v >> 2][v & 3][u]);
+// v into plane element `idx` (elements of one plane) of the mode's form at dst
+// (planes `pstride` elements apart)
+template <int MODE>
+__device__ __forceinline__ void store_form(void* dst, size_t idx, size_t pstride, float v) {
+  if (MODE == kTF32x3) {
+    uint32_t hi, lo;
+    split_tf32(v, hi, lo);
+    static_cast<uint32_t*>(dst)[idx] = hi;
+    static_cast<uint32_t*>(dst)[pstride + idx] = lo;
+  } else if (MODE == kBF16) {
+    static_cast<__nv_bfloat16*>(dst)[idx] = __float2bfloat16_rn(v);
   } else {
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int wm = warp & 3, wn = warp >> 2, g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          f(32 * wm + 16 * mt + g + 8 * (e >> 1), 32 * wn + 8 * nt + 2 * t + (e & 1),
-            acc[mt][nt][e]);
+    static_cast<float*>(dst)[idx] = v;
   }
 }
 
-// Where a product's B operand lies: streamed from a global plane (rows
-// [br0, br0 + SBN) past blim zero, row stride ldb), or the resident strip.
-struct Operand {
-  const float* g;
-  int ld, r0, lim;
-};
-
-// acc = A[ar0 : ar0 + SBM, 0:K] B^T over k < K, both row-major with k
-// contiguous.  A streams from global in SBK chunks, one landing while one
-// is multiplied (cp.async); each thread converts the pieces it copied once
-// they land.  B streams the same way (STAGE_B) or is the strip, read in
-// place.  Rows past alim are zero.  Begins and ends at a barrier; waits for
-// every commit group issued before it.
-template <int MODE, bool STAGE_B>
-__device__ void tile_product(float (&acc)[2][4][4], float* sm, const StripLayout& s,
-                             const float* a, int lda, int ar0, int alim, const Operand& b,
-                             int K) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp & 3, wn = warp >> 2;
-  const bool live = ar0 + 32 * wm < alim && b.r0 + 32 * wn < b.lim;  // a warp tile in range
-  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-  constexpr int NSTAGE = stages_of(MODE);
-  const int nk = (K + SBK - 1) / SBK;
-  auto load = [&](int c) {  // chunk c into stage c % NSTAGE, one commit group a chunk
-    if (c < nk) {
-      const int buf = c % NSTAGE;
-      stage<SBM, SBK>(sm + s.a + buf * SBM * s.ldk, s.ldk, a, lda, ar0, alim, c * SBK, K);
-      if (STAGE_B)
-        stage<SBN, SBK>(sm + s.b + buf * SBN * s.ldk, s.ldk, b.g, b.ld, b.r0, b.lim, c * SBK, K);
-    }
-    cp_async_commit();
-  };
-#pragma unroll
-  for (int c = 0; c < NSTAGE - 1; ++c) load(c);
-  for (int c = 0; c < nk; ++c) {
-    const int buf = c % NSTAGE;
-    cp_async_wait<NSTAGE - 2>();  // this thread's copies of chunk c landed
-    convert<MODE, SBM>(sm, s, s.a + buf * SBM * s.ldk, s.alo + buf * SBM * s.ldk,
-                       s.ah + buf * SBM * s.ldh / 2);
-    if (STAGE_B)
-      convert<MODE, SBN>(sm, s, s.b + buf * SBN * s.ldk, s.blo + buf * SBN * s.ldk,
-                         s.bh + buf * SBN * s.ldh / 2);
-    __syncthreads();  // chunk c converted by every thread; every thread done with chunk c - 1
-    load(c + NSTAGE - 1);  // into chunk c - 1's stage
-    const int k0 = c * SBK, klen = min(SBK, K - k0);
-    if (MODE == kF32) {
-      const float* bt = STAGE_B ? sm + s.b + buf * SBN * s.ldk : sm + s.st + k0;
-      const int bld = STAGE_B ? s.ldk : s.ldt;
-      thread_ffma(acc, sm + s.a + buf * SBM * s.ldk + tr * s.ldk, s.ldk, bt + tc * bld, bld, klen);
-    } else if (live) {
-      const int bld = STAGE_B ? (MODE == kBF16 ? s.ldh : s.ldk) : s.ldt;
-      const void *pa, *pal, *pb, *pbl;
-      if (MODE == kBF16) {
-        pa = reinterpret_cast<const __nv_bfloat16*>(sm + s.ah + buf * SBM * s.ldh / 2) +
-             32 * wm * s.ldh;
-        pal = pa;
-        pb = STAGE_B ? reinterpret_cast<const __nv_bfloat16*>(sm + s.bh + buf * SBN * s.ldh / 2)
-                     : reinterpret_cast<const __nv_bfloat16*>(sm + s.st) + k0;
-        pb = static_cast<const __nv_bfloat16*>(pb) + 32 * wn * bld;
-        pbl = pb;
-      } else {
-        pa = sm + s.a + buf * SBM * s.ldk + 32 * wm * s.ldk;
-        pal = sm + s.alo + buf * SBM * s.ldk + 32 * wm * s.ldk;
-        pb = (STAGE_B ? sm + s.b + buf * SBN * s.ldk : sm + s.st + k0) + 32 * wn * bld;
-        pbl = (STAGE_B ? sm + s.blo + buf * SBN * s.ldk : sm + s.stlo + k0) + 32 * wn * bld;
-      }
-      warp_mma<MODE>(acc, pa, pal, MODE == kBF16 ? s.ldh : s.ldk, pb, pbl, bld, klen, lane);
-    }
+// v0, v1 into plane elements idx, idx + 1 (idx even) of the mode's form
+template <int MODE>
+__device__ __forceinline__ void store_form2(void* dst, size_t idx, size_t pstride, float v0,
+                                            float v1) {
+  if (MODE == kTF32x3) {
+    uint2 hi, lo;
+    split_tf32(v0, hi.x, lo.x);
+    split_tf32(v1, hi.y, lo.y);
+    *reinterpret_cast<uint2*>(static_cast<uint32_t*>(dst) + idx) = hi;
+    *reinterpret_cast<uint2*>(static_cast<uint32_t*>(dst) + pstride + idx) = lo;
+  } else if (MODE == kBF16) {
+    *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(dst) + idx) = pack_bf16(make_float2(v0, v1));
+  } else {
+    *reinterpret_cast<float2*>(static_cast<float*>(dst) + idx) = make_float2(v0, v1);
   }
-  __syncthreads();  // every thread done with every stage
 }
 
-// The epilogue operand E[r0 : r0 + SBM, j0 : j0 + SBN] (row stride ld) into
-// the epilogue tile, as one commit group; rows past rlim and columns past
-// clim are zero
-__device__ __forceinline__ void stage_epilogue(float* sm, const StripLayout& s, const float* e,
-                                               int ld, int r0, int rlim, int j0, int clim) {
-  stage<SBM, SBN>(sm + s.e, s.lde, e, ld, r0, rlim, j0, clim);
-  cp_async_commit();
+// v into the resident strip at (row n, k) in the mode's form: tile k / ke
+// of SN rows, its 16-byte chunk swizzled by n % 8
+template <int MODE, int SN>
+__device__ __forceinline__ void store_strip(uint8_t* strip, int plane_bytes, int n, int k, float v) {
+  constexpr int ES = esize_of(MODE), KE = TROW / ES;
+  const int kb = (k % KE) * ES;
+  const int off = (k / KE) * SN * TROW + n * TROW + ((((kb >> 4) ^ (n & 7))) << 4) + (kb & 15);
+  if (MODE == kTF32x3) {
+    uint32_t hi, lo;
+    split_tf32(v, hi, lo);
+    *reinterpret_cast<uint32_t*>(strip + off) = hi;
+    *reinterpret_cast<uint32_t*>(strip + plane_bytes + off) = lo;
+  } else if (MODE == kBF16) {
+    *reinterpret_cast<__nv_bfloat16*>(strip + off) = __float2bfloat16_rn(v);
+  } else {
+    *reinterpret_cast<float*>(strip + off) = v;
+  }
 }
 
-// Half a trip for the strip of columns [j0, j0 + SBN) of pair b (plane
-// offsets pxy, pxx, pyy): S = Y Z[J,:]^T (+ E1[:, J]) into the strip, kept
-// transposed (row n = column j0 + n) in shared memory, or in p.st when it
-// spills; then X[:, J] = A S (* E2[:, J]).  FIRST: Y = 0 (the first trip's
-// M), so S = E1 and the product is skipped.  E1 and E2 tiles are staged
-// before each product, so their loads overlap it; X leaves through the
-// epilogue tile as whole rows.
-template <int MODE, bool SPILL>
-__device__ void half_trip(float* sm, const StripLayout& s, const StripParams& p, size_t pxy,
-                          size_t pxx, size_t pyy, int j0, const float* y, const float* z,
-                          const float* e1, const float* aop, const float* e2, float* x,
-                          bool first) {
-  const int nx = p.nx, ny = p.ny;
-  float* st_g = p.st + pxy;  // the spilled strip: (ny, nx) a pair
-  float acc[2][4][4];
-  for (int r0 = 0; r0 < nx; r0 += SBM) {
-    if (e1 != nullptr) stage_epilogue(sm, s, e1 + pxy, ny, r0, nx, j0, ny);
-    if (first) {
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-      cp_async_wait<0>();
-      __syncthreads();
+// One pair's (n1, n2) f32 plane into the mode's form: float4 pieces
+// first, first + step, ...
+template <int MODE>
+__device__ void convert_plane(const float* src, void* dst, int n, int first, int step) {
+  for (int q = first; q < n / 4; q += step) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(src) + q);
+    if (MODE == kTF32x3) {
+      uint4 hi, lo;
+      split_tf32(v.x, hi.x, lo.x);
+      split_tf32(v.y, hi.y, lo.y);
+      split_tf32(v.z, hi.z, lo.z);
+      split_tf32(v.w, hi.w, lo.w);
+      static_cast<uint4*>(dst)[q] = hi;
+      static_cast<uint4*>(dst)[n / 4 + q] = lo;
     } else {
-      tile_product<MODE, true>(acc, sm, s, y + pxy, ny, r0, nx, Operand{z + pyy, ny, j0, ny}, ny);
+      uint2 w;
+      w.x = pack_bf16(make_float2(v.x, v.y));
+      w.y = pack_bf16(make_float2(v.z, v.w));
+      static_cast<uint2*>(dst)[q] = w;
     }
-    each_element<MODE>(acc, [&](int i, int n, float v) {
-      const int gi = r0 + i, gj = j0 + n;
-      if (gi < nx && gj < ny) {
-        if (e1 != nullptr) v += sm[s.e + i * s.lde + n];
-        if (SPILL) {
-          st_g[(size_t)gj * nx + gi] = v;
-        } else if (MODE == kTF32x3) {
-          uint32_t hi, lo;
-          split_tf32(v, hi, lo);
-          reinterpret_cast<uint32_t*>(sm + s.st)[n * s.ldt + gi] = hi;
-          reinterpret_cast<uint32_t*>(sm + s.stlo)[n * s.ldt + gi] = lo;
-        } else if (MODE == kBF16) {
-          reinterpret_cast<__nv_bfloat16*>(sm + s.st)[n * s.ldt + gi] = __float2bfloat16_rn(v);
-        } else {
-          sm[s.st + n * s.ldt + gi] = v;
-        }
-      }
-    });
-    __syncthreads();  // the epilogue tile free; at the last tile, the strip complete
-  }
-  for (int r0 = 0; r0 < nx; r0 += SBM) {
-    if (e2 != nullptr) stage_epilogue(sm, s, e2 + pxy, ny, r0, nx, j0, ny);
-    if (SPILL)
-      tile_product<MODE, true>(acc, sm, s, aop + pxx, nx, r0, nx, Operand{st_g, nx, j0, ny}, nx);
-    else
-      tile_product<MODE, false>(acc, sm, s, aop + pxx, nx, r0, nx, Operand{nullptr, 0, j0, ny}, nx);
-    each_element<MODE>(acc, [&](int i, int n, float v) {
-      float* q = sm + s.e + i * s.lde + n;
-      *q = e2 != nullptr ? *q * v : v;
-    });
-    __syncthreads();  // the tile complete
-    constexpr int PER_ROW = SBN / 4;
-#pragma unroll
-    for (int k = 0; k < SBM * PER_ROW / STHREADS; ++k) {  // whole rows of the strip out
-      const int q = threadIdx.x + k * STHREADS;
-      const int i = q / PER_ROW, n = (q % PER_ROW) * 4;
-      if (r0 + i < nx && j0 + n < ny)
-        *reinterpret_cast<float4*>(x + pxy + (size_t)(r0 + i) * ny + j0 + n) =
-            *reinterpret_cast<const float4*>(sm + s.e + i * s.lde + n);
-    }
-    __syncthreads();  // the epilogue tile free
   }
 }
 
-template <int MODE, bool SPILL>
-__global__ void __launch_bounds__(STHREADS, 1) fixed_point_strips(StripParams p) {
-  extern __shared__ __align__(16) float sm[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int b = blockIdx.x / p.csize;
+template <int MODE, int RT, int SN>
+__global__ void __launch_bounds__(TTHREADS, 1) fixed_point_tiles(const __grid_constant__ TileParams p) {
+  constexpr int P = planes_of(MODE), ES = esize_of(MODE), KE = TROW / ES;
+  using Fr = Frag<MODE, RT, RT == 128 ? SN : SN / 2>;
+  constexpr int NACC = Fr::NACC;
+  extern __shared__ uint8_t smraw[];
+  // aligned up to 1024 bytes by pointer arithmetic on the shared array, so
+  // the compiler keeps its address space (shared loads, not generic ones)
+  uint8_t* sm = smraw + ((1024u - (smem_u32(smraw) & 1023u)) & 1023u);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int C = p.csize, rank = static_cast<int>(cluster_rank());
+  const int b = blockIdx.x / C;
   const int trips = p.iters[b];
   if (trips <= 0) {  // M = 0: every CTA of the cluster leaves
-    if (rank == 0 && threadIdx.x == 0) p.out[b] = 0.f;
+    if (rank == 0 && tid == 0) p.out[b] = 0.f;
     return;
   }
-  const StripLayout s = strip_layout(p.nx, MODE, SPILL);
-  const size_t pxy = (size_t)b * p.nx * p.ny, pxx = (size_t)b * p.nx * p.nx,
-               pyy = (size_t)b * p.ny * p.ny;
-  for (int it = 0; it < trips; ++it) {
-    for (int j = rank; j < p.nstrips; j += p.csize)  // G2[:, J] = Vx (M Vy[J,:]^T + L[:, J])
-      half_trip<MODE, SPILL>(sm, s, p, pxy, pxx, pyy, j * SBN, p.m, p.vy, p.l, p.vx, nullptr,
-                             p.g2, it == 0);
-    cluster.sync();  // G2 complete; every CTA done reading M
-    for (int j = rank; j < p.nstrips; j += p.csize)  // M[:, J] = NS[:, J] * (Ax G2 Ay[J,:]^T)
-      half_trip<MODE, SPILL>(sm, s, p, pxy, pxx, pyy, j * SBN, p.g2, p.ay, nullptr, p.ax, p.ns,
-                             p.m, false);
-    cluster.sync();  // M complete; every CTA done reading G2
+  const int nx = p.nx, ny = p.ny, S = p.stages;
+  const TileLayout L = tile_layout(nx, MODE, RT, SN, S, p.spill != 0);
+  const uint32_t sbase = smem_u32(sm);
+  const uint32_t full = sbase + L.bar_off, empty = full + 8 * TMAX_STAGES,
+                 strip_ready = empty + 8 * TMAX_STAGES;
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);  // one arrival a consumer warp
+    }
+    mbar_init(strip_ready, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const size_t pxy = (size_t)b * nx * ny;
+  if constexpr (MODE != kF32) {  // the prologue: this CTA's share of Vx, Ax, Vy, Ay in the mode's form
+    const int first = rank * TTHREADS + tid, step = C * TTHREADS;
+    const size_t xx = (size_t)b * nx * nx, yy = (size_t)b * ny * ny;
+    convert_plane<MODE>(p.vx + xx, static_cast<uint8_t*>(p.cvx) + xx * P * ES, nx * nx, first, step);
+    convert_plane<MODE>(p.ax + xx, static_cast<uint8_t*>(p.cax) + xx * P * ES, nx * nx, first, step);
+    convert_plane<MODE>(p.vy + yy, static_cast<uint8_t*>(p.cvy) + yy * P * ES, ny * ny, first, step);
+    convert_plane<MODE>(p.ay + yy, static_cast<uint8_t*>(p.cay) + yy * P * ES, ny * ny, first, step);
+    fence_async_global();
+  }
+  cluster_sync_all();  // every CTA's barriers initialized; the converted operands written
+
+  const int rtiles = (nx + RT - 1) / RT, nky = (ny + KE - 1) / KE, nkx = (nx + KE - 1) / KE;
+
+  if (warp >= 8) {
+    // ---- producer warpgroup: one thread keeps the TMA ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (tid == TCONSUMERS) {
+      uint32_t fill = 0, sr_phase = 0;
+      auto load = [&](const CUtensorMap* ta, int r0, int kc, const CUtensorMap* tb, int j0) {
+        const int s = fill % S;
+        mbar_wait(empty + 8 * s, ((fill / S) & 1) ^ 1);
+        const uint32_t bar = full + 8 * s;
+        mbar_expect_tx(bar, P * L.a_plane + (tb != nullptr ? P * L.b_plane : 0));
+        const uint32_t st = sbase + L.stages_off + s * L.stage;
+        for (int pl = 0; pl < P; ++pl) {
+          tma_load(st + pl * L.a_plane, ta, bar, kc * KE, r0, b * P + pl);
+          if (tb != nullptr)
+            tma_load(st + P * L.a_plane + pl * L.b_plane, tb, bar, kc * KE, j0, b * P + pl);
+        }
+        ++fill;
+      };
+      for (int it = 0; it < trips; ++it) {
+        for (int half = 0; half < 2; ++half) {
+          fence_async_global();  // the last half's M or G2, seen through the cluster barrier
+          const CUtensorMap* ty = half ? &p.tm_g2 : &p.tm_m;
+          const CUtensorMap* tz = half ? &p.tm_ay : &p.tm_vy;
+          const CUtensorMap* ta = half ? &p.tm_ax : &p.tm_vx;
+          for (int j0 = rank * SN; j0 < ny; j0 += C * SN) {
+            if (half == 1 || it > 0)
+              for (int r0 = 0; r0 < rtiles * RT; r0 += RT)
+                for (int kc = 0; kc < nky; ++kc) load(ty, r0, kc, tz, j0);
+            if (p.spill) {
+              mbar_wait(strip_ready, sr_phase);
+              sr_phase ^= 1;
+              fence_async_global();
+            }
+            for (int r0 = 0; r0 < rtiles * RT; r0 += RT)
+              for (int kc = 0; kc < nkx; ++kc) load(ta, r0, kc, p.spill ? &p.tm_st : nullptr, j0);
+          }
+          cluster_sync_all();
+        }
+      }
+    } else {
+      for (int k = 0; k < 2 * trips; ++k) cluster_sync_all();
+    }
+    cluster_sync_all();  // the bilinear form's two barriers
+    cluster_sync_all();
+    return;
   }
 
-  // ux^T M uy over the CTA's strips: each warp takes rows w, w + 8, ...;
-  // rank 0 adds the CTAs' partials in rank order
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // ---- consumer warpgroups 0 and 1 ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = warp >> 2, t = tid & 127;
+  const Fr fr(t, wg);
+  const size_t plane_xy = (size_t)nx * ny;
+  uint8_t* strip = sm + L.strip_off;
+  float acc[NACC], ev[NACC];
+  uint32_t fill = 0;
+
+  // the thread's elements of E[r0 + row, j0 + col] (E: the pair's (nx, ny)
+  // plane), 0 past the edges
+  constexpr int W = MODE == kF32 ? 1 : 2;  // adjacent columns a thread holds (wgmma layout)
+  auto fetch = [&](const float* e, int r0, int j0) {
+#pragma unroll
+    for (int i = 0; i < NACC; i += W) {
+      const int gi = r0 + fr.row(i), gj = j0 + fr.col(i);
+      const bool in = gi < nx && gj < ny;
+      if constexpr (W == 2) {
+        const float2 v = in ? __ldg(reinterpret_cast<const float2*>(e + pxy + (size_t)gi * ny + gj))
+                            : make_float2(0.f, 0.f);
+        ev[i] = v.x;
+        ev[i + 1] = v.y;
+      } else {
+        ev[i] = in ? __ldg(e + pxy + (size_t)gi * ny + gj) : 0.f;
+      }
+    }
+  };
+
+  // acc = A[r0 : r0 + RT, :] B^T over nk chunks; B staged, or the resident strip
+  auto product = [&](int nk, bool staged) {
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+    int prev = -1;
+    for (int kc = 0; kc < nk; ++kc) {
+      const int s = fill % S;
+      mbar_wait(full + 8 * s, (fill / S) & 1);
+      const int st = L.stages_off + s * L.stage;
+      const int a_off = st + fr.r0 * TROW;
+      const int b_off = (staged ? st + P * L.a_plane : L.strip_off + kc * SN * TROW) + fr.c0 * TROW;
+      const int b_plane = staged ? L.b_plane : L.strip_plane;
+      if constexpr (MODE == kF32) {
+        ffma_chunk<Fr::NU>(acc, sm + a_off, sm + b_off, fr.g, fr.q);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + 8 * s);
+      } else {
+        const uint64_t da = sw128_desc(sbase + a_off), db = sw128_desc(sbase + b_off);
+        const uint64_t dal = da + (L.a_plane >> 4), dbl = db + (b_plane >> 4);
+        reg_fence(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks) {  // 32 bytes of k a step
+          if constexpr (MODE == kTF32x3) {
+            wgmma_tf32(acc, dal + 2 * ks, db + 2 * ks);
+            wgmma_tf32(acc, da + 2 * ks, dbl + 2 * ks);
+            wgmma_tf32(acc, da + 2 * ks, db + 2 * ks);
+          } else {
+            wgmma_bf16(acc, da + 2 * ks, db + 2 * ks);
+          }
+        }
+        wgmma_commit();
+        if (p.lag) {
+          wgmma_wait<1>();  // the last chunk's products done: release its stage
+        } else {
+          wgmma_wait<0>();  // this chunk's: release it now
+          prev = s;
+        }
+        reg_fence(acc);
+        if (prev >= 0 && lane == 0) mbar_arrive(empty + 8 * prev);
+        prev = p.lag ? s : -1;
+      }
+      ++fill;
+    }
+    if constexpr (MODE != kF32) {
+      wgmma_wait<0>();
+      reg_fence(acc);
+      if (prev >= 0 && lane == 0) mbar_arrive(empty + 8 * prev);
+    }
+  };
+
+  for (int it = 0; it < trips; ++it) {
+    for (int half = 0; half < 2; ++half) {
+      const float* e1 = half ? nullptr : p.l;
+      const float* e2 = half ? p.ns : nullptr;
+      void* x = half ? p.mc : p.g2c;
+      const bool last = half == 1 && it == trips - 1 && MODE != kF32;
+      for (int j0 = rank * SN; j0 < ny; j0 += C * SN) {
+        // S = M Z[J,:]^T (+ L[:, J]) into the strip, kept as S^T
+        if (half == 0 && it == 0) {  // M = 0: S = L
+          for (int q = tid; q < SN * nkx * KE; q += TCONSUMERS) {
+            const int k = q / SN, n = q % SN;
+            const float v = k < nx && j0 + n < ny ? __ldg(p.l + pxy + (size_t)k * ny + j0 + n) : 0.f;
+            if (!p.spill)
+              store_strip<MODE, SN>(strip, L.strip_plane, n, k, v);
+            else if (k < nx && j0 + n < ny)
+              store_form<MODE>(p.st, ((size_t)b * P * ny + j0 + n) * nx + k, (size_t)ny * nx, v);
+          }
+        } else {
+          for (int r0 = 0; r0 < rtiles * RT; r0 += RT) {
+            if (e1 != nullptr) fetch(e1, r0, j0);  // lands while the product runs
+            product(nky, true);
+#pragma unroll
+            for (int i = 0; i < NACC; ++i) {
+              const int k = r0 + fr.row(i), n = fr.col(i);
+              // 0 past nx and ny: those A and B rows load as zeros, and so does E
+              const float v = e1 != nullptr ? acc[i] + ev[i] : acc[i];
+              if (!p.spill) {
+                if (k < nkx * KE) store_strip<MODE, SN>(strip, L.strip_plane, n, k, v);
+              } else if (k < nx && j0 + n < ny) {
+                store_form<MODE>(p.st, ((size_t)b * P * ny + j0 + n) * nx + k, (size_t)ny * nx, v);
+              }
+            }
+          }
+        }
+        if (p.spill) {  // the strip in device memory, for the producer's TMA
+          fence_async_global();
+          consumers_sync();
+          if (tid == 0) mbar_arrive(strip_ready);
+        } else {  // the strip in shared memory, for wgmma
+          fence_async_shared();
+          consumers_sync();
+        }
+        // X[:, J] = Aop S (* NS[:, J])
+        for (int r0 = 0; r0 < rtiles * RT; r0 += RT) {
+          if (e2 != nullptr) fetch(e2, r0, j0);
+          product(nkx, p.spill != 0);
+#pragma unroll
+          for (int i = 0; i < NACC; i += W) {
+            const int gi = r0 + fr.row(i), gj = j0 + fr.col(i);
+            if (gi < nx && gj < ny) {
+              const size_t e = (size_t)gi * ny + gj;
+              const float v0 = e2 != nullptr ? acc[i] * ev[i] : acc[i];
+              if constexpr (W == 2) {
+                const float v1 = e2 != nullptr ? acc[i + 1] * ev[i + 1] : acc[i + 1];
+                store_form2<MODE>(x, (size_t)b * P * plane_xy + e, plane_xy, v0, v1);
+                if (last) *reinterpret_cast<float2*>(p.mf + pxy + e) = make_float2(v0, v1);
+              } else {
+                store_form<MODE>(x, (size_t)b * P * plane_xy + e, plane_xy, v0);
+              }
+            }
+          }
+        }
+        consumers_sync();  // every consumer done with the strip
+      }
+      fence_async_global();  // X's writes, read by the cluster's TMA in the next half
+      cluster_sync_all();
+    }
+  }
+
+  // ux^T M uy over the CTA's strips: each consumer warp takes rows w, w + 8,
+  // ...; rank 0 adds the CTAs' partials in rank order
+  float* part = reinterpret_cast<float*>(sm + L.part_off);
   float v = 0.f;
-  for (int j = rank; j < p.nstrips; j += p.csize) {
-    const int j0 = j * SBN;
-    for (int i = warp; i < p.nx; i += SWARPS) {
+  for (int j0 = rank * SN; j0 < ny; j0 += C * SN) {
+    for (int i = warp; i < nx; i += 8) {
       float r = 0.f;
-      for (int n = lane; n < SBN && j0 + n < p.ny; n += 32)
-        r = fmaf(__ldcg(p.m + pxy + (size_t)i * p.ny + j0 + n),
-                 __ldg(p.uy + (size_t)b * p.ny + j0 + n), r);
+      for (int n = lane; n < SN && j0 + n < ny; n += 32)
+        r = fmaf(__ldcg(p.mf + pxy + (size_t)i * ny + j0 + n), __ldg(p.uy + (size_t)b * ny + j0 + n), r);
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) r += __shfl_xor_sync(0xffffffffu, r, o);
-      v = fmaf(__ldg(p.ux + (size_t)b * p.nx + i), r, v);
+      v = fmaf(__ldg(p.ux + (size_t)b * nx + i), r, v);
     }
   }
-  if (lane == 0) sm[s.part + warp] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
+  if (lane == 0) part[warp] = v;
+  consumers_sync();
+  if (tid == 0) {
     float cta = 0.f;
-    for (int w = 0; w < SWARPS; ++w) cta += sm[s.part + w];
-    sm[s.part + SWARPS] = cta;
+    for (int w = 0; w < 8; ++w) cta += part[w];
+    part[8] = cta;
   }
-  cluster.sync();  // every CTA's partial written
-  if (rank == 0 && threadIdx.x == 0) {
+  cluster_sync_all();  // every CTA's partial written
+  if (rank == 0 && tid == 0) {
+    cg::cluster_group cluster = cg::this_cluster();
     float total = 0.f;
-    for (int r = 0; r < p.csize; ++r) {
-      float* q = sm + s.part + SWARPS;
-      total += *(r == 0 ? q : cluster.map_shared_rank(q, r));
-    }
+    for (int r = 0; r < C; ++r) total += *(r == 0 ? part + 8 : cluster.map_shared_rank(part + 8, r));
     p.out[b] = total;
   }
-  cluster.sync();  // no CTA leaves while rank 0 may still read its partial
+  cluster_sync_all();  // no CTA leaves while rank 0 may still read its partial
 }
 
-// whether the strip of (nx, mode) fits a CTA's shared memory
-bool strip_fits(int nx, int mode) {
-  return (size_t)strip_layout(nx, mode, false).total * sizeof(float) <= MAX_SMEM;
+// cuTensorMapEncodeTiled through the runtime's driver entry point (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                         &q) != cudaSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &q) !=
+        cudaSuccess)
+      return nullptr;
+#endif
+    if (q != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
 }
 
-// Sets the kernel's attributes, checks that a cluster of its shape fits
-// the card, and launches it; with `info` it writes [CTAs a cluster, dynamic
-// shared memory bytes a CTA, clusters active at once, spill] there instead.
-template <int MODE, bool SPILL>
-int launch_strips(const StripParams& p, int batch, cudaStream_t stream, int* info) {
-  void (*kern)(StripParams) = fixed_point_strips<MODE, SPILL>;
-  const size_t smem = strip_layout(p.nx, MODE, SPILL).total * sizeof(float);
+// a map over (z, rows, k) planes of element size es: boxes of 128 bytes of
+// k by box_rows rows, 128-byte swizzle, zeros past the edges
+bool encode_map(CUtensorMap* m, const void* base, int es, int k, int rows, int z, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)k, (cuuint64_t)rows, (cuuint64_t)z};
+  const cuuint64_t strides[2] = {(cuuint64_t)k * es, (cuuint64_t)rows * k * es};
+  const cuuint32_t box[3] = {(cuuint32_t)(TROW / es), (cuuint32_t)box_rows, 1};
+  const cuuint32_t estr[3] = {1, 1, 1};
+  return fn(m, es == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+            const_cast<void*>(base), dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// whether a geometry is one the kernel takes: rows tile 64 or 128, strips of
+// 64 columns (or 128 in bf16 on the 64-row tile, the one place the card ran
+// them faster), 1-8 CTAs a pair, 2-8 stages, the shared memory within a CTA's
+bool tiles_valid(int nx, int ny, int mode, int rt, int sn, int csize, int stages, int spill) {
+  if (nx < 16 || ny < 16 || nx % 16 != 0 || ny % 16 != 0 || mode < kF32 || mode > kBF16) return false;
+  if ((rt != 64 && rt != 128) || (sn != 64 && (sn != 128 || mode != kBF16 || rt != 64)) ||
+      csize < 1 || csize > TMAX_CTAS || stages < 2 || stages > TMAX_STAGES)
+    return false;
+  return tile_layout(nx, mode, rt, sn, stages, spill != 0).total <= MAX_SMEM;
+}
+
+template <int MODE, int RT, int SN>
+int launch_tiles(TileParams& p, int batch, cudaStream_t stream, int* info) {
+  void (*kern)(TileParams) = fixed_point_tiles<MODE, RT, SN>;
+  const size_t smem = tile_layout(p.nx, MODE, RT, SN, p.stages, p.spill != 0).total;
   cudaError_t err;
-  if ((err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  (int)smem)) != cudaSuccess)
+  if ((err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+      cudaSuccess)
     return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(p.csize * batch);
-  cfg.blockDim = dim3(STHREADS);
+  cfg.blockDim = dim3(TTHREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -1011,10 +1199,8 @@ int launch_strips(const StripParams& p, int batch, cudaStream_t stream, int* inf
   int clusters = 0;
   if ((err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg)) != cudaSuccess) return (int)err;
   if (info != nullptr) {
-    info[0] = p.csize;
-    info[1] = (int)smem;
-    info[2] = clusters;
-    info[3] = SPILL ? 1 : 0;
+    info[0] = (int)smem;
+    info[1] = clusters;
     return 0;
   }
   if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
@@ -1023,29 +1209,18 @@ int launch_strips(const StripParams& p, int batch, cudaStream_t stream, int* inf
 }
 
 template <int MODE>
-int strips_mode(const StripParams& p, bool spill, int batch, cudaStream_t stream, int* info) {
-  if (spill) return launch_strips<MODE, true>(p, batch, stream, info);
-  return launch_strips<MODE, false>(p, batch, stream, info);
+int tiles_mode(TileParams& p, int batch, cudaStream_t stream, int* info) {
+  if constexpr (MODE == kBF16) {
+    if (p.sn == 128) return launch_tiles<MODE, 64, 128>(p, batch, stream, info);
+  }
+  if (p.rt == 64) return launch_tiles<MODE, 64, 64>(p, batch, stream, info);
+  return launch_tiles<MODE, 128, 64>(p, batch, stream, info);
 }
 
-// The strip spills to st where it does not fit shared memory.  Returns the
-// geometry, or false on a shape or mode the kernel does not take.
-bool strips_geometry(int nx, int ny, int mode, StripParams& p, bool& spills) {
-  if (nx < 16 || ny < 16 || nx % 16 != 0 || ny % 16 != 0 || mode < kF32 || mode > kBF16)
-    return false;
-  spills = !strip_fits(nx, mode);
-  p.nx = nx;
-  p.ny = ny;
-  p.nstrips = (ny + SBN - 1) / SBN;
-  p.csize = p.nstrips < MAX_STRIP_CTAS ? p.nstrips : MAX_STRIP_CTAS;
-  return true;
-}
-
-int strips_dispatch(const StripParams& p, int mode, bool spill, int batch, cudaStream_t stream,
-                    int* info) {
-  if (mode == kF32) return strips_mode<kF32>(p, spill, batch, stream, info);
-  if (mode == kTF32x3) return strips_mode<kTF32x3>(p, spill, batch, stream, info);
-  return strips_mode<kBF16>(p, spill, batch, stream, info);
+int tiles_dispatch(TileParams& p, int mode, int batch, cudaStream_t stream, int* info) {
+  if (mode == kF32) return tiles_mode<kF32>(p, batch, stream, info);
+  if (mode == kTF32x3) return tiles_mode<kTF32x3>(p, batch, stream, info);
+  return tiles_mode<kBF16>(p, batch, stream, info);
 }
 
 }  // namespace
@@ -1072,29 +1247,51 @@ extern "C" int stem_fixed_point_cluster_info(int nx, int ny, int mode, int* out)
   return dispatch(p, mode, 1, nullptr, out);
 }
 
-// Route 2.  nx, ny multiples of 16; iters already capped.  mode: 0 f32
-// FFMA, 1 3xTF32, 2 bf16.  m, g2: (batch, nx, ny) scratch; st: (batch, ny,
-// nx) scratch, read only when the strip spills (strips_geometry; may be
-// null otherwise).
-extern "C" int stem_fixed_point_strips(
-    const float* ns, const float* vx, const float* vy, const float* ax,
-    const float* ay, const float* l, const float* ux, const float* uy,
-    const int* iters, int batch, int nx, int ny, int mode, float* m, float* g2, float* st,
-    float* out, cudaStream_t stream) {
-  StripParams p{ns, vx, vy, ax, ay, l, ux, uy, iters, m, g2, st, out, 0, 0, 0, 0};
-  bool spills = false;
-  if (batch < 1 || !strips_geometry(nx, ny, mode, p, spills) || (spills && st == nullptr) ||
-      (long long)p.csize * batch > 0x7fffffffLL)
+// Route 2, the tile kernel.  nx, ny multiples of 16; iters already capped;
+// mode: 0 f32 FFMA, 1 3xTF32, 2 bf16.  The geometry (rows tile rt, columns
+// a strip sn, CTAs a pair csize, stages, spill, lag) is the wrapper's choice
+// (stem_kernel_torch/ops/stem_fixed_point.py: tile_geometry); this checks it.
+// lag: a stage is released one chunk after its products were issued.
+// Scratch in the mode's form (planes hi, lo in 3xTF32; bf16 in bf16):
+// cvx, cax (batch, planes, nx, nx), cvy, cay (batch, planes, ny, ny) (null in
+// f32: the inputs are read as they are); mc, g2c (batch, planes, nx, ny);
+// mf (batch, nx, ny) f32, = mc in f32; st (batch, planes, ny, nx) where the
+// strip spills (else null).  Every pointer 16-byte aligned.
+extern "C" int stem_fixed_point_tiles(
+    const float* ns, const float* vx, const float* vy, const float* ax, const float* ay,
+    const float* l, const float* ux, const float* uy, const int* iters, int batch, int nx, int ny,
+    int mode, int rt, int sn, int csize, int stages, int spill, int lag, void* cvx, void* cax, void* cvy,
+    void* cay, void* mc, void* g2c, float* mf, void* st, float* out, cudaStream_t stream) {
+  if (batch < 1 || !tiles_valid(nx, ny, mode, rt, sn, csize, stages, spill) ||
+      (spill && st == nullptr) || (long long)csize * batch > 0x7fffffffLL ||
+      (mode != kF32 && (cvx == nullptr || cax == nullptr || cvy == nullptr || cay == nullptr)))
     return (int)cudaErrorInvalidValue;
-  return strips_dispatch(p, mode, spills, batch, stream, nullptr);
+  TileParams p = {};
+  p.vx = vx; p.ax = ax; p.vy = vy; p.ay = ay; p.ns = ns; p.l = l; p.ux = ux; p.uy = uy;
+  p.iters = iters;
+  p.cvx = cvx; p.cax = cax; p.cvy = cvy; p.cay = cay;
+  p.mc = mc; p.g2c = g2c; p.st = st; p.mf = mf; p.out = out;
+  p.nx = nx; p.ny = ny; p.rt = rt; p.sn = sn; p.csize = csize;
+  p.stages = stages; p.spill = spill; p.lag = lag != 0;
+  const int es = esize_of(mode), z = batch * planes_of(mode);
+  const bool f32 = mode == kF32;
+  if (!encode_map(&p.tm_vx, f32 ? (const void*)vx : cvx, es, nx, nx, z, rt) ||
+      !encode_map(&p.tm_ax, f32 ? (const void*)ax : cax, es, nx, nx, z, rt) ||
+      !encode_map(&p.tm_m, mc, es, ny, nx, z, rt) ||
+      !encode_map(&p.tm_g2, g2c, es, ny, nx, z, rt) ||
+      !encode_map(&p.tm_vy, f32 ? (const void*)vy : cvy, es, ny, ny, z, sn) ||
+      !encode_map(&p.tm_ay, f32 ? (const void*)ay : cay, es, ny, ny, z, sn) ||
+      (spill && !encode_map(&p.tm_st, st, es, nx, ny, z, sn)))
+    return (int)cudaErrorInvalidValue;
+  return tiles_dispatch(p, mode, batch, stream, nullptr);
 }
 
-// Route 2's launch geometry for (nx, ny, mode): out = [CTAs a cluster,
-// dynamic shared memory bytes a CTA, clusters that can be active at once,
-// 1 if the strip spills to st].
-extern "C" int stem_fixed_point_strips_info(int nx, int ny, int mode, int* out) {
-  StripParams p = {};
-  bool spills = false;
-  if (!strips_geometry(nx, ny, mode, p, spills)) return (int)cudaErrorInvalidValue;
-  return strips_dispatch(p, mode, spills, 1, nullptr, out);
+// The tile kernel's launch geometry for a given choice: out = [dynamic
+// shared memory bytes a CTA, clusters that can be active at once].
+extern "C" int stem_fixed_point_tiles_info(int nx, int ny, int mode, int rt, int sn, int csize,
+                                           int stages, int spill, int* out) {
+  if (!tiles_valid(nx, ny, mode, rt, sn, csize, stages, spill)) return (int)cudaErrorInvalidValue;
+  TileParams p = {};
+  p.nx = nx; p.ny = ny; p.rt = rt; p.sn = sn; p.csize = csize; p.stages = stages; p.spill = spill;
+  return tiles_dispatch(p, mode, 1, nullptr, out);
 }

@@ -92,13 +92,14 @@ def load_library() -> ctypes.CDLL:
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # (ns, vx, vy, ax, ay, l, ux, uy, iters, batch, nx, ny, mode, m, g2, st,
-    #  out, stream)
-    fn = lib.stem_fixed_point_strips
-    fn.argtypes = [p] * 9 + [i] * 4 + [p] * 5
+    # (ns, vx, vy, ax, ay, l, ux, uy, iters, batch, nx, ny, mode, rt, sn,
+    #  csize, stages, spill, lag, cvx, cax, cvy, cay, mc, g2c, mf, st, out,
+    #  stream)
+    fn = lib.stem_fixed_point_tiles
+    fn.argtypes = [p] * 9 + [i] * 10 + [p] * 10
     fn.restype = ctypes.c_int
-    fn = lib.stem_fixed_point_strips_info
-    fn.argtypes = [i, i, i, p]
+    fn = lib.stem_fixed_point_tiles_info
+    fn.argtypes = [i] * 8 + [p]
     fn.restype = ctypes.c_int
     # (ns, vx, vy, ax, ay, l, ux, uy, iters, batch, nx, ny, mode, out, stream)
     fn = lib.stem_fixed_point_cluster

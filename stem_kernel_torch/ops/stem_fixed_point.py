@@ -18,7 +18,7 @@ units (:data:`MODES`), on both routes and at every node count:
 - "highest" -> "f32": f32 FFMA products;
 - "high" (the CLI default) -> "3xtf32": each operand x = hi + lo, both TF32
   rounded to nearest (ties away from zero), and hi*hi + hi*lo + lo*hi on
-  the tensor cores (up to about 1e-5 relative against f32 on the card);
+  the tensor cores (up to about 2e-5 relative against f32 on the card);
 - "default" -> "bf16": operands rounded to bf16 (nearest even), one pass on
   the tensor cores with f32 accumulation, as the JAX kernel's ``dot_bf``.
 
@@ -28,15 +28,16 @@ Routes on the card, chosen by shape (:func:`cluster_route`; node counts
 padded to 16 here): pairs with max(Nx, Ny) <= 64 take the cluster kernel,
 one launch for the whole fixed point, one CTA a pair
 (``stem_fixed_point.launches``); the rest take the per-product route's
-strip kernel, also one launch: a pair's columns in strips of 64, one strip
-a CTA of a cluster of up to 8 (``stem_fixed_point.launches_wide``).  The
-cut-over is where the card's times put it, the same in every mode
-(``chip_smoke.py`` phase 5 times every block shape of the stem Gram on the
-strip kernel, and on the cluster kernel where it runs): the strip kernel
-is slower at 64 x 64, and faster at 64 x 128 and 128 x 128 in every mode
-than clusters of four CTAs a pair, so the cluster kernel takes one CTA's
-worth, 64 nodes.  A CPU tensor takes :func:`stem_fixed_point_reference`; a
-CUDA tensor launches a kernel or raises.  Nothing falls back.
+tile kernel, also one launch (``stem_fixed_point.launches_wide``): a
+pair's columns in strips of 64 (128 in bf16 on a 64-row tile), one strip a
+CTA of a cluster of up to 8, the constant operands put in the mode's form
+once a call, a producer warp feeding TMA stages to two wgmma warpgroups,
+on the geometry :func:`tile_geometry` chooses.  What bounds it and what its design does
+about that: the header of the CUDA source.  The cut-over is where the
+card's times put it (``chip_smoke.py`` phase 5 times every block shape of
+the stem Gram on the per-product route, and on the cluster kernel where
+it runs).  A CPU tensor takes :func:`stem_fixed_point_reference`; a CUDA
+tensor launches a kernel or raises.  Nothing falls back.
 """
 
 from __future__ import annotations
@@ -168,18 +169,75 @@ def cluster_info(nx: int, ny: int, precision: str = "high") -> dict[str, int]:
     return {"smem_bytes": res[0], "active_pairs": res[1]}
 
 
+# The tile kernel's geometry (csrc/stem_fixed_point.cu, tile_layout: the
+# same byte counts)
+TILE_ROW_BYTES = 128  # bytes of k a staged row holds: one 128-byte swizzle atom
+MAX_TILE_STAGES = 8
+MAX_TILE_CTAS = 8  # CTAs a pair: the portable cluster size
+MIN_RESIDENT_STAGES = 3  # the strip spills where shared memory leaves fewer stages
+SMEM_LIMIT = 232448  # dynamic shared memory a CTA can opt into (H100)
+
+
+def _mode_sizes(mode: str) -> tuple[int, int]:
+    """(planes, bytes an element) of the mode's form."""
+    return (2 if mode == "3xtf32" else 1), (2 if mode == "bf16" else 4)
+
+
+def tile_smem(nx: int, mode: str, rows: int, stages: int, spill: bool, strip: int = 64) -> int:
+    """Dynamic shared memory bytes of a tile-kernel CTA (``tile_layout``)."""
+    planes, es = _mode_sizes(mode)
+    ke = TILE_ROW_BYTES // es
+    stage = planes * (rows + strip) * TILE_ROW_BYTES
+    resident = 0 if spill else planes * -(-nx // ke) * strip * TILE_ROW_BYTES
+    return stages * stage + resident + 8 * (2 * MAX_TILE_STAGES + 1) + 4 * 16 + 1024
+
+
+def tile_geometry(nx: int, ny: int, precision: str = "high") -> dict:
+    """The tile kernel's geometry for (Nx, Ny) (multiples of 16), chosen
+    here and nowhere else: the rows tile (64 at Nx <= 64, so that no warp
+    idles there; 128 past it, which the card timed faster at 256 and 512),
+    the strip's columns (128 in bf16 on the 64-row tile, else 64), CTAs a
+    pair (one a strip, up to ``MAX_TILE_CTAS``), the TMA stages (as many as
+    shared memory holds, up to 8), whether the strip spills to device
+    memory (where it would leave fewer than ``MIN_RESIDENT_STAGES``) and
+    whether a stage is released a chunk late (``lag``, where the ring holds
+    more than 4 stages).  Each rule is what the card's times chose
+    (PERF.md)."""
+    mode = MODES[precision]
+    rows = 64 if nx <= 64 else 128
+    # 128 columns: fewer A bytes a product; faster on the card only here
+    strip = 128 if mode == "bf16" and rows == 64 else 64
+    nstrips = -(-ny // strip)
+    ctas = min(nstrips, MAX_TILE_CTAS)
+    planes, _ = _mode_sizes(mode)
+    stage = planes * (rows + strip) * TILE_ROW_BYTES
+
+    def room(sp: bool) -> int:
+        return (SMEM_LIMIT - tile_smem(nx, mode, rows, 0, sp, strip)) // stage
+
+    spill = room(False) < MIN_RESIDENT_STAGES
+    stages = min(MAX_TILE_STAGES, room(spill))
+    return {"rows": rows, "strip": strip, "ctas": ctas, "nstrips": nstrips, "stages": stages,
+            "spill": bool(spill), "lag": stages > 4,
+            "smem_bytes": tile_smem(nx, mode, rows, stages, spill, strip)}
+
+
 @functools.cache
-def strips_info(nx: int, ny: int, precision: str = "high") -> dict[str, int]:
+def strips_info(nx: int, ny: int, precision: str = "high") -> dict:
     """The per-product route's launch geometry on the current card for
-    (Nx, Ny) (padded to 16): CTAs a pair, dynamic shared memory a CTA,
-    pairs (clusters) active at once, and whether the strip spills to device
-    memory, which it does where it does not fit shared memory."""
-    res = (ctypes.c_int * 4)()
-    rc = load_library().stem_fixed_point_strips_info(
-        _round_up(nx), _round_up(ny), _MODE_IDS[MODES[precision]], res)
+    (Nx, Ny) (padded to 16): :func:`tile_geometry`'s choice, and the pairs
+    (clusters) that can be active at once."""
+    px, py = _round_up(nx), _round_up(ny)
+    geo = tile_geometry(px, py, precision)
+    res = (ctypes.c_int * 2)()
+    rc = load_library().stem_fixed_point_tiles_info(
+        px, py, _MODE_IDS[MODES[precision]], geo["rows"], geo["strip"], geo["ctas"],
+        geo["stages"], int(geo["spill"]), res)
     if rc != 0:
-        raise RuntimeError(f"stem_fixed_point_strips_info failed: CUDA error {rc}")
-    return {"ctas": res[0], "smem_bytes": res[1], "active_pairs": res[2], "spill": res[3]}
+        raise RuntimeError(f"stem_fixed_point_tiles_info failed: CUDA error {rc}")
+    if res[0] != geo["smem_bytes"]:
+        raise RuntimeError(f"tile_smem says {geo['smem_bytes']} B, the kernel {res[0]} B")
+    return {**geo, "active_pairs": res[1]}
 
 
 def stem_fixed_point(ns, vx, vy, ax, ay, l, ux, uy, iters, *,
@@ -229,27 +287,44 @@ def cluster_kernel(ns, vx, vy, ax, ay, l, ux, uy, iters, *, precision: str) -> t
     return out
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy where its address is not 16-byte aligned (TMA's rule)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def per_product_route(ns, vx, vy, ax, ay, l, ux, uy, iters, *, precision: str) -> torch.Tensor:
-    """The per-product route's strip kernel on checked CUDA operands,
+    """The per-product route's tile kernel on checked CUDA operands,
     ``iters`` already capped: one launch, any shape, products in
-    ``MODES[precision]``; the strip spills to device memory where it does
-    not fit shared memory (:func:`strips_info`).  The wrapper takes it where
+    ``MODES[precision]``, on :func:`tile_geometry`'s choice; scratch for the
+    operands in the mode's form, M, G2 and a spilled strip comes from here.  The wrapper takes it where
     :func:`cluster_route` says no; ``chip_smoke.py`` also times it beside
     the cluster kernel.  Counts no launch."""
     bsz, nx, ny = ns.shape
-    ops = _pad_nodes([ns, vx, vy, ax, ay, l, ux, uy], nx, ny)
+    ops = [_aligned(t) for t in _pad_nodes([ns, vx, vy, ax, ay, l, ux, uy], nx, ny)]
     px, py = ops[0].shape[1], ops[0].shape[2]
-    geo = strips_info(px, py, precision)
-    out = torch.empty(bsz, device=ns.device, dtype=torch.float32)
-    m = torch.empty((bsz, px, py), device=ns.device, dtype=torch.float32)
-    g2 = torch.empty_like(m)
-    st = torch.empty((bsz, py, px), device=ns.device, dtype=torch.float32) if geo["spill"] else None
-    with torch.cuda.device(ns.device):
-        rc = load_library().stem_fixed_point_strips(
-            *[t.data_ptr() for t in ops], iters.data_ptr(), bsz, px, py,
-            _MODE_IDS[MODES[precision]], m.data_ptr(), g2.data_ptr(),
-            None if st is None else st.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(ns.device).cuda_stream)
+    mode = MODES[precision]
+    geo = tile_geometry(px, py, precision)
+    planes, _ = _mode_sizes(mode)
+    form = torch.bfloat16 if mode == "bf16" else torch.float32
+    dev = ns.device
+
+    def scratch(*shape):
+        return torch.empty((bsz, planes, *shape), device=dev, dtype=form)
+
+    conv = [None] * 4 if mode == "f32" else [scratch(px, px), scratch(px, px),
+                                             scratch(py, py), scratch(py, py)]
+    mc, g2c = scratch(px, py), scratch(px, py)
+    mf = mc if mode == "f32" else torch.empty((bsz, px, py), device=dev, dtype=torch.float32)
+    st = scratch(py, px) if geo["spill"] else None
+    out = torch.empty(bsz, device=dev, dtype=torch.float32)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
+        rc = load_library().stem_fixed_point_tiles(
+            *[t.data_ptr() for t in ops], iters.data_ptr(), bsz, px, py, _MODE_IDS[mode],
+            geo["rows"], geo["strip"], geo["ctas"], geo["stages"], int(geo["spill"]),
+            int(geo["lag"]),
+            *[ptr(t) for t in conv], mc.data_ptr(), g2c.data_ptr(), mf.data_ptr(), ptr(st),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"stem_fixed_point per-product kernel launch failed: CUDA error {rc}")
     return out

@@ -200,7 +200,7 @@ def test_cpu_wrapper_runs_f32_for_every_name(precision):
 def test_modes_and_routes():
     """The cut-over the card's times placed (chip_smoke.py phase 5), the same
     in every mode: the cluster kernel up to 64 nodes (one CTA a pair), the
-    per-product route's strip kernel past it, at 64 x 128 and 128 x 128 too."""
+    per-product route's tile kernel past it, at 64 x 128 and 128 x 128 too."""
     assert fp.MODES == {"highest": "f32", "high": "3xtf32", "default": "bf16"}
     assert fp.cluster_route(64, 64) and fp.cluster_route(1, 64)
     assert fp.cluster_route(60, 16) and fp.cluster_route(16, 49)
@@ -216,21 +216,21 @@ def test_modes_and_routes():
 
 class _FakeLibrary:
     """Stands in for the built CUDA library: records the route and the mode
-    id (argument 12 of both launch entry points) of each launch."""
+    id (argument 12 of both launch entry points) of each launch, and the
+    tile kernel's geometry (arguments 13-18: rows tile, strip columns, CTAs
+    a pair, stages, spill, release lag) and scratch pointers (19-26)."""
 
     def __init__(self):
         self.calls = []
+        self.tiles = []
 
     def stem_fixed_point_cluster(self, *args):
         self.calls.append(("cluster", args[12]))
         return 0
 
-    def stem_fixed_point_strips(self, *args):
+    def stem_fixed_point_tiles(self, *args):
         self.calls.append(("per-product", args[12]))
-        return 0
-
-    def stem_fixed_point_strips_info(self, nx, ny, mode, res):
-        res[0], res[1], res[2], res[3] = 1, 0, 1, 0  # CTAs, shared memory, active, spill
+        self.tiles.append((args[10], args[11], args[13:19], args[19:27]))
         return 0
 
 
@@ -248,28 +248,131 @@ def test_route_runs_the_named_mode(precision, monkeypatch):
     want = {"highest": 0, "high": 1, "default": 2}[precision]
     shapes = {(16, 16): "cluster", (64, 48): "cluster", (40, 64): "cluster",
               (64, 80): "per-product", (128, 128): "per-product", (144, 160): "per-product",
-              (160, 144): "per-product", (320, 288): "per-product"}
-    fp.strips_info.cache_clear()
-    try:
-        for (nx, ny), name in shapes.items():
-            ops = [torch.zeros(shape) for shape in ((1, nx, ny), (1, nx, nx), (1, ny, ny),
-                                                    (1, nx, nx), (1, ny, ny), (1, nx, ny),
-                                                    (1, nx), (1, ny))]
-            iters = torch.ones(1, dtype=torch.int32)
-            launch = fp.cluster_kernel if fp.cluster_route(nx, ny) else fp.per_product_route
-            launch(*ops, iters, precision=precision)
-            assert lib.calls[-1] == (name, want), (nx, ny)
-    finally:
-        fp.strips_info.cache_clear()
+              (160, 144): "per-product", (320, 288): "per-product", (64, 256): "per-product",
+              (512, 512): "per-product"}
+    for (nx, ny), name in shapes.items():
+        ops = [torch.zeros(shape) for shape in ((1, nx, ny), (1, nx, nx), (1, ny, ny),
+                                                (1, nx, nx), (1, ny, ny), (1, nx, ny),
+                                                (1, nx), (1, ny))]
+        iters = torch.ones(1, dtype=torch.int32)
+        launch = fp.cluster_kernel if fp.cluster_route(nx, ny) else fp.per_product_route
+        launch(*ops, iters, precision=precision)
+        assert lib.calls[-1] == (name, want), (nx, ny)
     assert len(lib.calls) == len(shapes)
+    # the tile kernel gets tile_geometry's choice for the padded shape, the
+    # operands' scratch in the mode's form (none in f32, which reads them as
+    # they are) and a spill buffer only where the strip spills
+    assert len(lib.tiles) == sum(name == "per-product" for name in shapes.values())
+    for px, py, geometry, scratch in lib.tiles:
+        geo = fp.tile_geometry(px, py, precision)
+        assert geometry == (geo["rows"], geo["strip"], geo["ctas"], geo["stages"],
+                            int(geo["spill"]), int(geo["lag"]))
+        converted = scratch[:4]
+        assert all(ptr is None for ptr in converted) == (precision == "highest")
+        assert (scratch[7] is not None) == geo["spill"]
+        assert all(ptr is not None for ptr in scratch[4:7])  # M, G2, f32 M
+
+
+def _form(x: torch.Tensor, mode: str) -> tuple[torch.Tensor, ...]:
+    """x in the mode's form, as the tile kernel stores it: (x,) in f32,
+    (hi, lo) in 3xTF32, (x rounded to bf16,) in bf16."""
+    if mode == "3xtf32":
+        return fp.split_tf32(x)
+    return (fp.round_bf16(x),) if mode == "bf16" else (x,)
+
+
+def _bmm_form(a: tuple, b: tuple, mode: str) -> torch.Tensor:
+    """a @ b from operands already in the mode's form: the plain version's
+    products and sums, in its order."""
+    if mode == "3xtf32":
+        (ah, al), (bh, bl) = a, b
+        return (torch.bmm(al, bh) + torch.bmm(ah, bl)) + torch.bmm(ah, bh)
+    return torch.bmm(a[0], b[0])
+
+
+def _converted_flow(ns, vx, vy, ax, ay, l, ux, uy, iters, *, max_iters, mode):
+    """The tile kernel's data flow in plain torch: Vx, Ax, Vy and Ay put in
+    the mode's form once a call, and M, G2 and the strip S put in it where
+    they are written, so no product converts an operand; the bilinear form
+    reads M in f32."""
+    it = torch.clamp(iters, max=max_iters)
+    cvx, cax = _form(vx, mode), _form(ax, mode)
+    cvyt = tuple(t.transpose(1, 2) for t in _form(vy, mode))
+    cayt = tuple(t.transpose(1, 2) for t in _form(ay, mode))
+    m = torch.zeros_like(ns)
+    cm = _form(m, mode)
+    for k in range(max_iters):
+        s = _bmm_form(cm, cvyt, mode) + l  # the first half-trip's strip
+        g2 = _bmm_form(cvx, _form(s, mode), mode)  # written in the mode's form
+        m_new = ns * _bmm_form(cax, _form(_bmm_form(_form(g2, mode), cayt, mode), mode), mode)
+        m = torch.where((it > k)[:, None, None], m_new, m)
+        cm = _form(m, mode)
+    return torch.einsum("bi,bij,bj->b", ux, m, uy)
+
+
+@pytest.mark.parametrize("mode", ["f32", "3xtf32", "bf16"])
+@pytest.mark.parametrize("case", ["corpus", *_WIDE])
+def test_converted_flow_matches_reference(mode, case):
+    """The tile kernel's data flow in plain torch (Vx, Ax, Vy, Ay in the
+    mode's form once a call; M, G2 and the strip where they are written)
+    gives the per-product plain version's values bit for bit in every mode:
+    a value rounded once and rounded each trip round alike."""
+    if case == "corpus":
+        ops, iters = _pair_operands("per_pair")
+    else:
+        ops, _, iters = _wide_case(*_WIDE[case])
+    want = fp.stem_fixed_point_reference(*ops, max_iters=iters, mode=mode).numpy()
+    got = _converted_flow(*ops, max_iters=iters, mode=mode).numpy()
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_tile_geometry():
+    """The tile kernel's geometry, chosen in one place (tile_geometry): a
+    64-row tile at Nx <= 64 (so at Nx = 64 no warp idles) and 128 rows past
+    it, one CTA a strip (64 columns; 128 in bf16 on the 64-row tile) up to
+    8 a pair, the
+    strip spilled where shared memory would leave fewer than 3 stages, a
+    stage released a chunk late only in rings of more than 4 stages (the
+    card's times chose each rule), and the shared-memory bytes within a
+    CTA's."""
+    g = fp.tile_geometry
+    assert g(64, 256)["rows"] == 64 and g(64, 128)["rows"] == 64
+    assert g(128, 256)["rows"] == 128 and g(112, 48)["rows"] == 128
+    assert g(48, 256)["rows"] == 64 and g(80, 128)["rows"] == 128
+    assert g(192, 192)["rows"] == 128 and g(320, 288)["rows"] == 128
+    assert [g(64, ny)["ctas"] for ny in (48, 64, 128, 256, 512, 1024)] == [1, 1, 2, 4, 8, 8]
+    assert g(80, 176)["nstrips"] == 3 and g(80, 176)["ctas"] == 3
+    # 128-column strips in bf16 on the 64-row tile only
+    assert g(64, 512, "default")["strip"] == 128 and g(64, 512, "default")["ctas"] == 4
+    assert g(64, 512, "high")["strip"] == 64 and g(64, 512, "highest")["strip"] == 64
+    assert g(128, 512, "default")["strip"] == 64
+    assert not g(128, 256, "high")["spill"] and g(256, 256, "high")["spill"]
+    assert g(512, 512, "high")["spill"] and g(320, 288, "high")["spill"]
+    assert g(528, 96, "high")["spill"] and g(1056, 96, "highest")["spill"]
+    for prec in ("highest", "default"):
+        assert not g(256, 256, prec)["spill"] and not g(512, 512, prec)["spill"]
+    assert not g(528, 96, "default")["spill"] and not g(1216, 96, "default")["spill"]
+    # 1232 x 96: the first Nx at which the strip spills in every mode
+    assert all(g(1232, 96, prec)["spill"] for prec in fp.PRECISIONS)
+    for nx, ny in ((64, 128), (128, 128), (64, 256), (128, 256), (256, 256), (128, 512),
+                   (512, 512), (320, 288), (528, 96), (1056, 96), (1232, 96)):
+        for prec in fp.PRECISIONS:
+            geo = g(nx, ny, prec)
+            assert 2 <= geo["stages"] <= fp.MAX_TILE_STAGES
+            assert geo["smem_bytes"] <= fp.SMEM_LIMIT
+            assert geo["lag"] == (geo["stages"] > 4)
+            if not geo["spill"] and geo["stages"] < fp.MAX_TILE_STAGES:
+                assert fp.tile_smem(nx, fp.MODES[prec], geo["rows"], geo["stages"] + 1,
+                                    False, geo["strip"]) > fp.SMEM_LIMIT  # as many as fit
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["highest", "high", "default"])
 @pytest.mark.parametrize("shape", [(64, 64), (128, 64), (64, 128), (40, 72), (128, 256),
-                                   (320, 288)],
+                                   (320, 288), (64, 256), (512, 512)],
                          ids=["C=1", "rect C=4", "64x128", "padded", "per-product 128x256",
-                              "per-product 320x288"])
+                              "per-product 320x288", "per-product 64x256",
+                              "per-product 512x512"])
 def test_cuda_modes_match_plain_version(precision, shape):
     """The kernel in each mode against the plain version in the same mode,
     on random operands scaled so the fixed point stays bounded, with
