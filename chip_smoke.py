@@ -154,10 +154,13 @@ Phases (the first failure exits non-zero; nothing is caught):
    half of the largest bucket block's units cleared (fewer launches than
    the full run, the same Gram); ``bpla_kernel -n --checkpoint``: phase 7's
    Gram bit for bit; (d) ``--trace-dir`` on 20 + 20 sequences: the trace
-   holds device events of each K1 route the run launched, the Gram equals the
+   holds device events of each K1 route the run launched and the program's
+   ``stem_kernel::`` ranges, none of them copied onto the device's
+   timeline, ``counters.json`` the run's Gram pairs, the Gram equals the
    untraced run's; (e) the stem train and predict flows' walls with the
-   featurize stage apart (``StageTimer``), on the native and on the Python
-   scan, beside phase 4's walls; (f) the unnormalised ``bpla_optimizer
+   featurize stage apart (host clock, each featurize ended by a
+   synchronize), on the native and on the Python scan, beside phase 4's
+   walls; (f) the unnormalised ``bpla_optimizer
    --fold 2`` on phase 16's 20 + 20 sequences (native SMO), its wall;
 20. the rest of the fold layer: (a) ``bpla_kernel -n --use-alifold`` train
    on 100 + 100 CLUSTAL alignments of 8 rows and 110-130 columns (phase
@@ -1456,7 +1459,6 @@ def slice6_phase(dev, smi: str, reset_counts, counts, corpus: tuple) -> None:
     from stem_kernel_torch.io.profile import Alignment
     from stem_kernel_torch.models.bpla import BPLAKernel
     from stem_kernel_torch.models.featurize import bpla_features
-    from stem_kernel_torch.ops.stem_fixed_point import stem_fixed_point
 
     t_phase = time.perf_counter()
     pos, neg, tpos, tneg = corpus
@@ -1555,7 +1557,7 @@ def slice6_phase(dev, smi: str, reset_counts, counts, corpus: tuple) -> None:
     run_cli(stem_kernel_lite.main, ["--device", "cuda", "--use-contrafold", "default", "-n",
                                     p("cf_stem.dat"), "+1", fasta["pos"], "-1", fasta["neg"]])
     cf_stem_s = time.perf_counter() - t0
-    cf_counts, cf_wide = counts(), stem_fixed_point.launches_wide
+    cf_counts, cf_wide = counts(), counter("k1.calls.tiles")
     labels, g = read_precomputed(p("cf_stem.dat"))
     gram_checks("stem_kernel_lite --use-contrafold", g, n, labels, train_labels)
     print(f"stem_kernel_lite --use-contrafold default, {n} sequences of {SEQ_LEN} nt: "
@@ -1705,9 +1707,9 @@ def slice5_phase(dev, smi: str, reset_counts, counts, corpus: tuple, stem: dict,
     from stem_kernel_torch.gram.io import read_precomputed
     from stem_kernel_torch.models import dag
     from stem_kernel_torch.models.composite import StemLiteConfig
-    from stem_kernel_torch.ops.stem_fixed_point import stem_fixed_point
     from stem_kernel_torch.svm import solver
-    from stem_kernel_torch.utils.tracing import TRACE_FILE, StageTimer
+    from stem_kernel_torch.utils.tracing import COUNTERS_FILE, TRACE_FILE
+    from stem_kernel_torch.utils.tracing import PREFIX as PROGRAM_RANGE
 
     t_phase = time.perf_counter()
     host = f"{cpu_model()} (the host of {smi})"
@@ -1723,7 +1725,7 @@ def slice5_phase(dev, smi: str, reset_counts, counts, corpus: tuple, stem: dict,
     train_args = ["+1", p("pos.fa"), "-1", p("neg.fa")]
 
     def k1() -> int:
-        return stem_fixed_point.launches + stem_fixed_point.launches_wide
+        return counter("k1.calls.cluster") + counter("k1.calls.tiles")
 
     walls = {}
 
@@ -1844,13 +1846,18 @@ def slice5_phase(dev, smi: str, reset_counts, counts, corpus: tuple, stem: dict,
     run_cli(stem_kernel_lite.main, ["--device", "cuda", "-n", "--trace-dir", p("trace"),
                                     p("traced.dat"), *small])
     traced_s = time.perf_counter() - t0
-    launches = {"cluster": stem_fixed_point.launches,
-                "per-product": stem_fixed_point.launches_wide}
+    launches = {"cluster": counter("k1.calls.cluster"),
+                "per-product": counter("k1.calls.tiles")}
     with open(os.path.join(p("trace"), TRACE_FILE)) as f:
         events = json.load(f)["traceEvents"]
     k1_events = {r: [e for e in events if e.get("cat") == "kernel" and kern in e.get("name", "")]
                  for r, kern in (("cluster", "fixed_point_cluster"),
                                  ("per-product", "fixed_point_tiles"))}
+    ranges = [e for e in events if e.get("name", "").startswith(PROGRAM_RANGE)]
+    on_device = [e for e in ranges if e.get("cat", "").startswith("gpu")]
+    stages = sorted({e["name"] for e in ranges})
+    with open(os.path.join(p("trace"), COUNTERS_FILE)) as f:
+        traced_counts = json.load(f)
     same = np.array_equal(read_precomputed(p("traced.dat"))[1],
                           read_precomputed(p("untraced.dat"))[1])
     print(f"stem_kernel_lite -n --trace-dir, {2 * TRACE_N} sequences: {traced_s:.2f} s "
@@ -1858,7 +1865,16 @@ def slice5_phase(dev, smi: str, reset_counts, counts, corpus: tuple, stem: dict,
           f"launches counted by route: "
           + "; ".join(f"{r} {len(ev)} ({ev[0]['name'] if ev else 'none'}), {launches[r]} "
                       f"launches" for r, ev in k1_events.items())
-          + f"; Gram equal to the untraced run's: {same}")
+          + f"; {len(ranges)} program ranges ({', '.join(stages)}), {len(on_device)} of them "
+          f"on the device's timeline; counters {traced_counts}; Gram equal to the untraced "
+          f"run's: {same}")
+    pairs = TRACE_N * (2 * TRACE_N + 1)
+    check(traced_counts.get("gram.pairs") == pairs,
+          f"counters.json counts {traced_counts.get('gram.pairs')} Gram pairs, not {pairs}")
+    check({PROGRAM_RANGE + s for s in ("read", "featurize", "fold", "gram", "string", "k1",
+                                       "write")} <= set(stages),
+          "the trace lacks a stage of the program's train flow")
+    check(not on_device, "the profiler copied program ranges onto the device's timeline")
     check(sum(launches.values()) > 0, "the traced run launched no K1 kernel")
     for r, n_launches in launches.items():
         check(n_launches == 0 or len(k1_events[r]) > 0,
@@ -1870,14 +1886,16 @@ def slice5_phase(dev, smi: str, reset_counts, counts, corpus: tuple, stem: dict,
     native_scan = dag._dag_topology
     featurizers = {name: getattr(stem_kernel_lite, name)
                    for name in ("featurize_stem_examples", "featurize_stem_bucketed")}
-    timer = StageTimer()
+    totals: dict[str, float] = {}  # seconds by "<scan> <flow> flow" and "... featurize"
     flow = ["train"]
 
     def timed(fn):
         def wrapper(*args, **kwargs):
-            with timer.stage(f"{flow[0]} featurize"):
-                out = fn(*args, **kwargs)
-                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            key = f"{flow[0]} featurize"
+            totals[key] = totals.get(key, 0.0) + time.perf_counter() - t0
             return out
         return wrapper
 
@@ -1889,19 +1907,21 @@ def slice5_phase(dev, smi: str, reset_counts, counts, corpus: tuple, stem: dict,
             dag._dag_topology = topology
             reset_counts()
             flow[0] = f"{scan} train"
-            with timer.stage(f"{scan} train flow"):
-                g_e = stem_train(f"{scan}.dat")
+            t0 = time.perf_counter()
+            g_e = stem_train(f"{scan}.dat")
+            totals[f"{scan} train flow"] = time.perf_counter() - t0
             check(np.array_equal(g_e, stem["g"]),
                   f"the {scan} scan's Gram differs from phase 4's")
             svm_tools.train_main([p(f"{scan}.dat"), p(f"{scan}.model")])
             flow[0] = f"{scan} predict"
-            with timer.stage(f"{scan} predict flow"):
-                run_cli(stem_kernel_lite.main, [
-                    "--device", "cuda", "-n", p(f"{scan}_test.dat"), "--model",
-                    p(f"{scan}.model"), "--predict", p(f"{scan}_pred.txt"), *train_args,
-                    "--test", "+1", p("tpos.fa"), "-1", p("tneg.fa")])
+            t0 = time.perf_counter()
+            run_cli(stem_kernel_lite.main, [
+                "--device", "cuda", "-n", p(f"{scan}_test.dat"), "--model",
+                p(f"{scan}.model"), "--predict", p(f"{scan}_pred.txt"), *train_args,
+                "--test", "+1", p("tpos.fa"), "-1", p("tneg.fa")])
+            totals[f"{scan} predict flow"] = time.perf_counter() - t0
             check(k1() > 0, f"the {scan} scan's flows never launched K1")
-            flows[scan] = {k: v for k, v in timer.totals.items() if k.startswith(scan)}
+            flows[scan] = {k: v for k, v in totals.items() if k.startswith(scan)}
     finally:
         dag._dag_topology = native_scan
         for name, fn in featurizers.items():
@@ -1930,27 +1950,29 @@ def slice5_phase(dev, smi: str, reset_counts, counts, corpus: tuple, stem: dict,
     tmp_dir.cleanup()
 
 
+# each kernel's launches: the program's counter of the wrapper calls that ran it
+KERNEL_COUNTERS = {"K1": "k1.calls.cluster", "K2": "la.la_log_factored.calls",
+                   "K3": "la.la_exp_factored.calls", "K4": "la.la_exp.calls",
+                   "K5": "la.la_log.calls", "K6": "k6.calls"}
+
+
+def counter(name: str) -> int:
+    """The program's counter ``name`` (stem_kernel_torch.utils.tracing); 0
+    where nothing has counted it since the last reset."""
+    from stem_kernel_torch.utils.tracing import counters
+
+    return counters().get(name, 0)
+
+
 def kernel_counters():
-    """(wrappers, reset_counts, counts): each kernel's wrapper by its key,
-    a function setting every launch count to 0 and one reading K1-K6."""
-    from stem_kernel_torch.ops import la
-    from stem_kernel_torch.ops.full_stem_banded import full_stem_banded_log
-    from stem_kernel_torch.ops.stem_fixed_point import stem_fixed_point
-
-    wrappers = {"K1": stem_fixed_point, "K2": la.la_log_factored, "K3": la.la_exp_factored,
-                "K4": la.la_exp, "K5": la.la_log, "K6": full_stem_banded_log}
-
-    def reset_counts() -> None:
-        for w in wrappers.values():
-            w.launches = 0
-        stem_fixed_point.launches_wide = 0
-        for w in (la.la_log_factored, la.la_exp_factored, la.la_exp, la.la_log):
-            w.launches_lanes = 0
+    """(reset_counts, counts): a function setting every counter of the
+    program to 0 and one reading K1-K6's launches."""
+    from stem_kernel_torch.utils.tracing import reset_counters
 
     def counts() -> dict[str, int]:
-        return {k: w.launches for k, w in wrappers.items()}
+        return {k: counter(name) for k, name in KERNEL_COUNTERS.items()}
 
-    return wrappers, reset_counts, counts
+    return reset_counters, counts
 
 
 @contextlib.contextmanager
@@ -2032,8 +2054,6 @@ def run_job(cli: str, argv: list, reset_counts, counts) -> dict:
     per-product route), its wall and its Gram passes' wall, in seconds."""
     import importlib
 
-    from stem_kernel_torch.ops.stem_fixed_point import stem_fixed_point
-
     main_fn = (flagship_gram if cli == "flagship"
                else importlib.import_module(f"stem_kernel_torch.cli.{cli}").main)
     gram_s = [0.0]
@@ -2043,7 +2063,7 @@ def run_job(cli: str, argv: list, reset_counts, counts) -> dict:
         rc = main_fn(argv)
     wall = time.perf_counter() - t0
     check(rc == 0, f"{cli} {argv}: exit code {rc}")
-    return {"counts": {**counts(), "K1w": stem_fixed_point.launches_wide},
+    return {"counts": {**counts(), "K1w": counter("k1.calls.tiles")},
             "wall_s": wall, "gram_s": gram_s[0]}
 
 
@@ -2063,7 +2083,7 @@ def rank_worker(spec_path: str) -> int:
     with open(spec_path) as fh:
         spec = json.load(fh)
     full_f32()
-    _, reset_counts, counts = kernel_counters()
+    reset_counts, counts = kernel_counters()
     report = {"jobs": [run_job(cli, argv, reset_counts, counts) for _, cli, argv in spec["jobs"]]}
     rank, n_ranks = world()
     check(n_ranks == 2, f"rank {rank}: {n_ranks} ranks in the group, not 2")
@@ -2239,7 +2259,7 @@ def main() -> int:
     )
     from stem_kernel_torch.utils.shuffle import dinucleotide_shuffle
 
-    _, reset_counts, counts = kernel_counters()
+    reset_counts, counts = kernel_counters()
 
     # ---- 1. environment ----
     full_f32()
@@ -2362,11 +2382,11 @@ def main() -> int:
         _, nx, ny = case_args[0].shape
         rname = "cluster" if cluster_route(nx, ny) else "per-product"
         for prec in MODES:
-            before = (stem_fixed_point.launches, stem_fixed_point.launches_wide)
+            before = (counter("k1.calls.cluster"), counter("k1.calls.tiles"))
             k1_parity(label, case_args, case_iters, prec,
                       lambda: stem_fixed_point(*case_args, max_iters=case_iters,  # noqa: B023
                                                precision=prec), f"{rname} route")  # noqa: B023
-            after = (stem_fixed_point.launches, stem_fixed_point.launches_wide)
+            after = (counter("k1.calls.cluster"), counter("k1.calls.tiles"))
             which = 0 if rname == "cluster" else 1
             check(after[which] == before[which] + 1, f"K1 {label}: the {rname} route did not run")
     for (key, prec), (rel, rel_f32) in k1_modes.items():
@@ -2391,8 +2411,8 @@ def main() -> int:
     stem_kernel_lite.main(["--device", "cuda", "-n", p("km.dat"),
                            "+1", p("pos.fa"), "-1", p("neg.fa")])
     train_s = time.perf_counter() - t0
-    train_launches = stem_fixed_point.launches
-    train_wide = stem_fixed_point.launches_wide
+    train_launches = counter("k1.calls.cluster")
+    train_wide = counter("k1.calls.tiles")
     svm_tools.train_main([p("km.dat"), p("km.model")])
     t0 = time.perf_counter()
     stem_kernel_lite.main(["--device", "cuda", "-n", p("test.dat"),
@@ -2401,7 +2421,7 @@ def main() -> int:
                            "--test", "+1", p("tpos.fa"), "-1", p("tneg.fa")])
     predict_s = time.perf_counter() - t0
     stem_counts = counts()
-    launches, wide = stem_counts["K1"], stem_fixed_point.launches_wide
+    launches, wide = stem_counts["K1"], counter("k1.calls.tiles")
     labels, g = read_precomputed(p("km.dat"))
     g_stem = g
 
@@ -2758,7 +2778,7 @@ def main() -> int:
     bpla_kernel.main(["--device", "cuda", "-n", p("bpla.dat"),
                       "+1", p("pos.fa"), "-1", p("neg.fa")])
     bpla_train_s = time.perf_counter() - t0
-    bpla_train_launches = la.la_log_factored.launches
+    bpla_train_launches = counter("la.la_log_factored.calls")
     svm_tools.train_main([p("bpla.dat"), p("bpla.model")])
     t0 = time.perf_counter()
     bpla_kernel.main(["--device", "cuda", "-n", p("bpla_test.dat"),
@@ -2796,8 +2816,8 @@ def main() -> int:
     la_kernel.main(["--device", "cuda", "-n", p("la.dat"),
                     "+1", p("ppos.fa"), "-1", p("pneg.fa")])
     la_train_s = time.perf_counter() - t0
-    la_train_launches = la.la_exp.launches
-    la_train_lanes = la.la_exp.launches_lanes
+    la_train_launches = counter("la.la_exp.calls")
+    la_train_lanes = counter("la.la_exp.lanes")
     svm_tools.train_main([p("la.dat"), p("la.model")])
     la_kernel.main(["--device", "cuda", "-n", p("la_test.dat"),
                     "--model", p("la.model"), "--predict", p("la_pred.txt"),
@@ -2806,7 +2826,7 @@ def main() -> int:
     la_counts = counts()
     report["K4"]["launches"] = la_counts["K4"]
     labels, g_la = read_precomputed(p("la.dat"))
-    la_lanes = la.la_exp.launches_lanes
+    la_lanes = counter("la.la_exp.lanes")
     print(f"LA path: train Gram {g_la.shape}, K4 launches {la_train_launches} (train) "
           f"{la_counts['K4']} (train + predict), on a lane geometry {la_train_lanes} (train) "
           f"{la_lanes} (train + predict); all counts {la_counts}")
@@ -2831,7 +2851,7 @@ def main() -> int:
     g_fwd = PairKernelEngine(BPLAKernel().to(dev), prof_feats, device=dev,
                              batch_size=LA_BATCH).gram(normalize=True)
     fwd_counts = counts()
-    fwd_lanes = la.la_exp_factored.launches_lanes
+    fwd_lanes = counter("la.la_exp_factored.lanes")
     report["K3"]["launches"] = fwd_counts["K3"]
     print(f"flagship forward: exp Gram {g_fwd.shape} of random-profile examples "
           f"(L 32-64); K3 on a lane geometry {fwd_lanes}; all counts {fwd_counts}")
@@ -2972,7 +2992,7 @@ def main() -> int:
     stem_kernel.main(["--device", "cuda", "-n", *band_flags, p("full.dat"),
                       "+1", p("fpos.fa"), "-1", p("fneg.fa")])
     full_train_s = time.perf_counter() - t0
-    full_train_launches = full_stem_banded_log.launches
+    full_train_launches = counter("k6.calls")
     svm_tools.train_main([p("full.dat"), p("full.model")])
     t0 = time.perf_counter()
     stem_kernel.main(["--device", "cuda", "-n", *band_flags, p("full_test.dat"),

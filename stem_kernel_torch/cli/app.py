@@ -18,8 +18,9 @@ each rank drives the GPU of its ``LOCAL_RANK``, the Gram's pair batches are
 split across the ranks (``--devices``, ``--single-device``; parallel.mesh)
 and rank 0 alone writes files.  ``--checkpoint`` resumes the train Gram
 unit by unit (gram.checkpoint), ``--trace-dir`` writes a torch.profiler
-Chrome trace of the whole flow (utils.tracing), and ``--use-pf-scale-file``
-reads 'label file pf_file' triples.
+Chrome trace of the whole flow, its stages as ranges, and the run's counters
+(utils.tracing), and ``--use-pf-scale-file`` reads 'label file pf_file'
+triples.
 """
 
 from __future__ import annotations
@@ -41,7 +42,7 @@ from ..parallel.distributed import initialize, rank_device
 from ..parallel.mesh import process_zero, resolve_mesh
 from ..svm.model import load_model, load_sv_index
 from ..svm.train import svm_predict_probability, svm_predict_values
-from ..utils.tracing import device_profile
+from ..utils.tracing import device_profile, span
 
 
 @dataclass
@@ -103,7 +104,10 @@ def add_common_options(p: argparse.ArgumentParser) -> None:
     p.add_argument("--trace-dir", default="",
                    help="write a torch.profiler trace of the run to "
                         "DIR/trace.json (Chrome trace format; view it in "
-                        "chrome://tracing or Perfetto)")
+                        "chrome://tracing or Perfetto), the program's stages "
+                        "in it as stem_kernel::<stage> ranges, and the run's "
+                        "counters (launches by route, Gram pairs and batches, "
+                        "host reads) to DIR/counters.json")
     p.add_argument("--use-pf-scale-file", action="store_true",
                    help="positional args come as 'label file pf_scale_file' "
                         "triples (framework.cpp:26-30); the scaled fold "
@@ -265,55 +269,68 @@ def _run_app_inner(opts, featurize, make_kernel_fn, *, device, batch_size, log_k
     io_rank = process_zero()  # rank-0 I/O (framework.h:135-163)
     t_start = time.time()
     counts: list[int] | None = [] if opts.use_pf_scale_file else None
-    train_alns, train_labels = load_labeled(opts.labels, opts.files, counts_out=counts)
-    if opts.use_pf_scale_file:
-        load_pf_scales(opts.pf_files, counts)
+    with span("read"):
+        train_alns, train_labels = load_labeled(opts.labels, opts.files, counts_out=counts)
+        if opts.use_pf_scale_file:
+            load_pf_scales(opts.pf_files, counts)
     if not opts.predict_mode:
         if featurize_buckets is not None:
             from ..gram.bucketed import bucketed_gram
 
-            g = bucketed_gram(featurize_buckets(train_alns), make_kernel_fn,
-                              device=device, normalize=opts.normalize,
-                              batch_size=batch_size, log_values=log_kernel,
-                              checkpoint_path=opts.checkpoint or None, mesh=mesh)
+            with span("featurize"):
+                buckets = featurize_buckets(train_alns)
+            with span("gram"):
+                g = bucketed_gram(buckets, make_kernel_fn,
+                                  device=device, normalize=opts.normalize,
+                                  batch_size=batch_size, log_values=log_kernel,
+                                  checkpoint_path=opts.checkpoint or None, mesh=mesh)
         else:
-            feats, aux = featurize(train_alns)
-            eng = PairKernelEngine(make_kernel_fn(aux), feats, device=device,
-                                   batch_size=batch_size, slab_batches=slab_batches,
-                                   log_values=log_kernel, mesh=mesh)
-            g = eng.gram(normalize=opts.normalize,
-                         checkpoint_path=opts.checkpoint or None)
+            with span("featurize"):
+                feats, aux = featurize(train_alns)
+            with span("gram"):
+                eng = PairKernelEngine(make_kernel_fn(aux), feats, device=device,
+                                       batch_size=batch_size, slab_batches=slab_batches,
+                                       log_values=log_kernel, mesh=mesh)
+                g = eng.gram(normalize=opts.normalize,
+                             checkpoint_path=opts.checkpoint or None)
         if io_rank:
-            write_precomputed(opts.output, train_labels, g)
+            with span("write"):
+                write_precomputed(opts.output, train_labels, g)
         print(f"elapsed time: {time.time()-t_start:.1f}s", file=sys.stderr)
         return
 
     # ---- predict mode (streaming: fixed-size test chunks) ----
     sv_index = None
     models = []
-    if opts.model_files:
-        sv_index = load_sv_index(opts.model_files)
-        models = [load_model(m) for m in opts.model_files]
-    ts_counts: list[int] | None = [] if opts.use_pf_scale_file else None
-    test_alns, test_labels = load_labeled(opts.ts_labels, opts.ts_files,
-                                          counts_out=ts_counts)
-    if opts.use_pf_scale_file:
-        load_pf_scales(opts.pf_ts_files, ts_counts)
+    with span("read"):
+        if opts.model_files:
+            sv_index = load_sv_index(opts.model_files)
+            models = [load_model(m) for m in opts.model_files]
+        ts_counts: list[int] | None = [] if opts.use_pf_scale_file else None
+        test_alns, test_labels = load_labeled(opts.ts_labels, opts.ts_files,
+                                              counts_out=ts_counts)
+        if opts.use_pf_scale_file:
+            load_pf_scales(opts.pf_ts_files, ts_counts)
 
-    train_feats, aux_tr = featurize(train_alns)
-    eng = PairKernelEngine(make_kernel_fn(aux_tr), train_feats, device=device,
-                           batch_size=batch_size, log_values=log_kernel, mesh=mesh)
-    diag = eng.diagonal(sv_index=sv_index)
+    with span("featurize"):
+        train_feats, aux_tr = featurize(train_alns)
+    with span("diagonal"):
+        eng = PairKernelEngine(make_kernel_fn(aux_tr), train_feats, device=device,
+                               batch_size=batch_size, log_values=log_kernel, mesh=mesh)
+        diag = eng.diagonal(sv_index=sv_index)
 
     chunk = max(1, int(opts.stream_chunk or 64))
     all_norm_rows, all_self = [], []
     # self values feed only normalization and the norm file
     need_self = bool(opts.normalize) or bool(opts.norm_output)
     for lo in range(0, len(test_alns), chunk):
-        feats_c, aux_c = featurize(test_alns[lo: lo + chunk])
-        if merge_aux is not None:
-            eng.kernel_fn = make_kernel_fn(merge_aux(aux_tr, aux_c))
-        rows, self_vals = eng.rows(feats_c, sv_index=sv_index, with_self=need_self)
+        with span("chunk"):
+            with span("featurize"):
+                feats_c, aux_c = featurize(test_alns[lo: lo + chunk])
+            if merge_aux is not None:
+                eng.kernel_fn = make_kernel_fn(merge_aux(aux_tr, aux_c))
+            with span("gram"):
+                rows, self_vals = eng.rows(feats_c, sv_index=sv_index, with_self=need_self)
         if log_kernel:
             cols = np.arange(rows.shape[1]) if sv_index is None else np.asarray(sv_index)
             norm_rows = np.zeros_like(rows)
@@ -337,20 +354,22 @@ def _run_app_inner(opts, featurize, make_kernel_fn, *, device, batch_size, log_k
                  else np.zeros((0, len(train_alns)), np.float32))
     self_vals = (np.concatenate(all_self) if all_self else np.zeros((0,), np.float64))
 
-    if not opts.predict_only and io_rank:
-        with _open_write(opts.output) as f:
-            write_rows(f, test_labels, norm_rows)
-    if opts.norm_output and io_rank:
-        write_norm(opts.norm_output, self_vals)
+    with span("write"):
+        if not opts.predict_only and io_rank:
+            with _open_write(opts.output) as f:
+                write_rows(f, test_labels, norm_rows)
+        if opts.norm_output and io_rank:
+            write_norm(opts.norm_output, self_vals)
 
     outs = opts.predict_outputs or [f"{opts.output}.pred{i}" for i in range(len(models))]
-    for model, out_path in zip(models if io_rank else [], outs):
-        with open(out_path, "w") as f:
-            for t, label in enumerate(test_labels):
-                if model.prob_A is not None:
-                    pred, prob = svm_predict_probability(model, norm_rows[t])
-                    f.write(f"{label} {pred} {' '.join(f'{p:g}' for p in prob)}\n")
-                else:
-                    pred, dec = svm_predict_values(model, norm_rows[t])
-                    f.write(f"{label} {dec[0]:g}\n")
+    with span("svm"):
+        for model, out_path in zip(models if io_rank else [], outs):
+            with open(out_path, "w") as f:
+                for t, label in enumerate(test_labels):
+                    if model.prob_A is not None:
+                        pred, prob = svm_predict_probability(model, norm_rows[t])
+                        f.write(f"{label} {pred} {' '.join(f'{p:g}' for p in prob)}\n")
+                    else:
+                        pred, dec = svm_predict_values(model, norm_rows[t])
+                        f.write(f"{label} {dec[0]:g}\n")
     print(f"elapsed time: {time.time()-t_start:.1f}s", file=sys.stderr)

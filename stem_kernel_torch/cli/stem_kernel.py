@@ -28,6 +28,7 @@ from ..models.full_stem import full_stem_kernel, pair_weights
 from ..models.phmm import posterior_windows
 from ..ops import full_f32
 from ..ops.full_stem_banded import full_stem_banded_log
+from ..utils.tracing import span
 from .app import (
     add_common_options,
     parse_args_with_positionals,
@@ -73,15 +74,16 @@ def main(argv=None) -> int:
         bpps = None
         if ns.basepair_probability > 0:
             bpps = fold_sequences(seqs, device=device)
-        for i, s in enumerate(seqs):
-            c = encode(s)
-            codes[i, : len(c)] = c
-            lens[i] = len(c)
-            bp[i, : len(c), : len(c)] = pair_weights(
-                c, len(c), use_GU=not ns.noGU, min_loop=ns.loop,
-                bpp=None if bpps is None else bpps[i],
-                bp_bound=ns.basepair_probability,
-            )
+        with span("pair_weights"):
+            for i, s in enumerate(seqs):
+                c = encode(s)
+                codes[i, : len(c)] = c
+                lens[i] = len(c)
+                bp[i, : len(c), : len(c)] = pair_weights(
+                    c, len(c), use_GU=not ns.noGU, min_loop=ns.loop,
+                    bpp=None if bpps is None else bpps[i],
+                    bp_bound=ns.basepair_probability,
+                )
         return {"codes": codes, "length": lens, "bp": bp}, None
 
     # -b: the banded engine, log-valued and rescaled, so no f32 overflow at

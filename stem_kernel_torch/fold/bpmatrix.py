@@ -28,6 +28,7 @@ import torch
 
 from ..io.alphabet import encode
 from ..io.profile import Alignment, index_map, profile_from_alignment
+from ..utils.tracing import count, span
 from .mccaskill_scaled import mccaskill_bpp_batch_scaled
 from .params import N_PAIR, PAIR_TYPE, EnergyParams, default_params
 
@@ -98,24 +99,28 @@ def fold_sequences(seqs: list[str], opts: BPMatrixOptions | None = None, *,
     """
     opts = opts or BPMatrixOptions()
     params = opts.resolved_params()
+    count("fold.sequences", len(seqs))
     if opts.n_samples > 0:
         from .sampling import sfold_bpp
 
-        return [sfold_bpp(s, opts.n_samples, params, device=device) for s in seqs]
+        with span("fold"):
+            return [sfold_bpp(s, opts.n_samples, params, device=device) for s in seqs]
     codes_all = [encode(s) for s in seqs]
     out: list[np.ndarray | None] = [None] * len(seqs)
-    for idxs in _length_groups([len(c) for c in codes_all]):
-        lpad = max(1, max(len(codes_all[i]) for i in idxs))
-        codes = np.zeros((len(idxs), lpad), np.uint8)
-        lens = np.zeros(len(idxs), np.int32)
-        for r, i in enumerate(idxs):
-            codes[r, : len(codes_all[i])] = codes_all[i]
-            lens[r] = len(codes_all[i])
-        bpps, _ = mccaskill_bpp_batch_scaled(codes, lens, params, device=device)
-        host = bpps.cpu().numpy()
-        for r, i in enumerate(idxs):
-            L = lens[r]
-            out[i] = np.asarray(host[r, :L, :L], dtype=np.float64)
+    with span("fold"):
+        for idxs in _length_groups([len(c) for c in codes_all]):
+            lpad = max(1, max(len(codes_all[i]) for i in idxs))
+            codes = np.zeros((len(idxs), lpad), np.uint8)
+            lens = np.zeros(len(idxs), np.int32)
+            for r, i in enumerate(idxs):
+                codes[r, : len(codes_all[i])] = codes_all[i]
+                lens[r] = len(codes_all[i])
+            bpps, _ = mccaskill_bpp_batch_scaled(codes, lens, params, device=device)
+            host = bpps.cpu().numpy()
+            count("fold.batches")
+            for r, i in enumerate(idxs):
+                L = lens[r]
+                out[i] = np.asarray(host[r, :L, :L], dtype=np.float64)
     return out  # type: ignore[return-value]
 
 

@@ -23,6 +23,7 @@ from .engine import (
     refuse_checkpoint_across_ranks,
     to_device,
 )
+from ..utils.tracing import span
 
 # bucket: (global example indices, stacked features, aux e.g. iteration bound)
 Bucket = tuple[np.ndarray, Mapping[str, torch.Tensor], object]
@@ -59,37 +60,39 @@ def bucketed_gram(
     g = np.zeros((n, n), dtype=np.float32)
     for p, (idx_p, feats_p, aux_p) in enumerate(buckets):
         for q in range(p, len(buckets)):
-            idx_q, feats_q, aux_q = buckets[q]
-            eng = PairKernelEngine(make_kernel_fn(merge_aux(aux_p, aux_q)), feats_p,
-                                   device=device, batch_size=batch_size,
-                                   log_values=log_values, mesh=mesh)
-            ckpt = None
-            if checkpoint_path is not None:
-                n_pairs = (len(idx_p) * (len(idx_p) + 1) // 2 if p == q
-                           else len(idx_p) * len(idx_q))
-                # the y-side features join the fingerprint of a cross block,
-                # so a corpus with same-sized buckets is rejected
-                ckpt = eng.checkpoint_for(
-                    os.path.join(checkpoint_path, f"block_{p}_{q}"), n_pairs=n_pairs,
-                    n=len(idx_p), extra_features=None if p == q else feats_q)
-            if p == q:
-                ix, iy = np.triu_indices(len(idx_p))
-                vals = eng.run_pairs(ix, iy, checkpoint=ckpt)
-                g[idx_p[ix], idx_p[iy]] = vals
-                g[idx_p[iy], idx_p[ix]] = vals
-            else:
-                tt, jj = np.meshgrid(np.arange(len(idx_p)), np.arange(len(idx_q)),
-                                     indexing="ij")
-                tt, jj = tt.ravel(), jj.ravel()
-                vals = eng.run_pairs(tt, jj, feats_y=to_device(feats_q, eng.device),
-                                     checkpoint=ckpt)
-                g[idx_p[tt], idx_q[jj]] = vals
-                g[idx_q[jj], idx_p[tt]] = vals
-    if log_values:
+            with span("block"):
+                idx_q, feats_q, aux_q = buckets[q]
+                eng = PairKernelEngine(make_kernel_fn(merge_aux(aux_p, aux_q)), feats_p,
+                                       device=device, batch_size=batch_size,
+                                       log_values=log_values, mesh=mesh)
+                ckpt = None
+                if checkpoint_path is not None:
+                    n_pairs = (len(idx_p) * (len(idx_p) + 1) // 2 if p == q
+                               else len(idx_p) * len(idx_q))
+                    # the y-side features join the fingerprint of a cross block,
+                    # so a corpus with same-sized buckets is rejected
+                    ckpt = eng.checkpoint_for(
+                        os.path.join(checkpoint_path, f"block_{p}_{q}"), n_pairs=n_pairs,
+                        n=len(idx_p), extra_features=None if p == q else feats_q)
+                if p == q:
+                    ix, iy = np.triu_indices(len(idx_p))
+                    vals = eng.run_pairs(ix, iy, checkpoint=ckpt)
+                    g[idx_p[ix], idx_p[iy]] = vals
+                    g[idx_p[iy], idx_p[ix]] = vals
+                else:
+                    tt, jj = np.meshgrid(np.arange(len(idx_p)), np.arange(len(idx_q)),
+                                         indexing="ij")
+                    tt, jj = tt.ravel(), jj.ravel()
+                    vals = eng.run_pairs(tt, jj, feats_y=to_device(feats_q, eng.device),
+                                         checkpoint=ckpt)
+                    g[idx_p[tt], idx_q[jj]] = vals
+                    g[idx_q[jj], idx_p[tt]] = vals
+    with span("normalize"):
+        if log_values:
+            if normalize:
+                d = np.diag(g)
+                return np.exp(g - 0.5 * (d[:, None] + d[None, :])).astype(np.float32)
+            return _exp_to_f32_checked(g)
         if normalize:
-            d = np.diag(g)
-            return np.exp(g - 0.5 * (d[:, None] + d[None, :])).astype(np.float32)
-        return _exp_to_f32_checked(g)
-    if normalize:
-        g = normalize_gram(g)
-    return g
+            g = normalize_gram(g)
+        return g

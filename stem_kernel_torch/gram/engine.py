@@ -30,6 +30,7 @@ import torch
 
 from ..parallel.distributed import gather_pair_values
 from ..parallel.mesh import shard_pairs
+from ..utils.tracing import count, span
 
 Features = Mapping[str, torch.Tensor]
 # kernel_fn(x_batch, y_batch) -> (B,) kernel values; x/y are feature dicts
@@ -135,12 +136,6 @@ class PairKernelEngine:
         n_pairs, bs = len(ix), self.batch_size
         ix_t = torch.as_tensor(np.asarray(ix, np.int64), device=self.device)
         iy_t = torch.as_tensor(np.asarray(iy, np.int64), device=self.device)
-
-        def batch(lo: int, hi: int) -> torch.Tensor:
-            x = {k: v.index_select(0, ix_t[lo:hi]) for k, v in feats_x.items()}
-            y = {k: v.index_select(0, iy_t[lo:hi]) for k, v in feats_y.items()}
-            return self.kernel_fn(x, y)
-
         n_batches = -(-n_pairs // bs)
         first = 0 if self.mesh is None else self.mesh.deal(n_batches)
         mine = shard_pairs(self.mesh, n_batches, first)
@@ -151,13 +146,20 @@ class PairKernelEngine:
             for k in slots:
                 lo = mine[k] * bs
                 hi = min(lo + bs, n_pairs)
-                buf[k * bs: k * bs + hi - lo] = batch(lo, hi)
+                with span("gather"):
+                    x = {f: v.index_select(0, ix_t[lo:hi]) for f, v in feats_x.items()}
+                    y = {f: v.index_select(0, iy_t[lo:hi]) for f, v in feats_y.items()}
+                with span("kernel"):
+                    buf[k * bs: k * bs + hi - lo] = self.kernel_fn(x, y)
+                count("gram.batches")
+                count("gram.pairs", hi - lo)
 
         if checkpoint is None:
             run(range(len(mine)))
-            if self.mesh is None:
-                return buf[:n_pairs].cpu().numpy()
-            return gather_pair_values(buf.cpu().numpy(), n_pairs, bs, self.mesh, first)
+            with span("fetch"):  # the pass's one wait for the device
+                if self.mesh is None:
+                    return buf[:n_pairs].cpu().numpy()
+                return gather_pair_values(buf.cpu().numpy(), n_pairs, bs, self.mesh, first)
         if checkpoint.n_pairs != n_pairs:
             raise ValueError(f"checkpoint {checkpoint.path} holds {checkpoint.n_pairs} "
                              f"pairs, not {n_pairs}")
@@ -170,7 +172,8 @@ class PairKernelEngine:
                 host[lo:hi] = checkpoint.load_batch(u)
                 continue
             run(range(lo // bs, -(-hi // bs)))
-            host[lo:hi] = buf[lo:hi].cpu().numpy()
+            with span("fetch"):
+                host[lo:hi] = buf[lo:hi].cpu().numpy()
             checkpoint.store_batch(u, host[lo:hi])
         return host
 
@@ -205,14 +208,15 @@ class PairKernelEngine:
         g = np.zeros((self.n, self.n), dtype=np.float32)
         g[iu] = vals
         g = g + np.triu(g, 1).T
-        if self.log_values:
+        with span("normalize"):
+            if self.log_values:
+                if normalize:
+                    d = np.diag(g)
+                    return np.exp(g - 0.5 * (d[:, None] + d[None, :])).astype(np.float32)
+                return _exp_to_f32_checked(g)
             if normalize:
-                d = np.diag(g)
-                return np.exp(g - 0.5 * (d[:, None] + d[None, :])).astype(np.float32)
-            return _exp_to_f32_checked(g)
-        if normalize:
-            g = normalize_gram(g)
-        return g
+                g = normalize_gram(g)
+            return g
 
     def diagonal(self, sv_index: np.ndarray | None = None) -> np.ndarray:
         """k(x_i, x_i) for all (or the given subset of) training examples;

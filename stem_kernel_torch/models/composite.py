@@ -18,6 +18,7 @@ import torch
 from ..fold.bpmatrix import BPMatrixOptions, average_bpp, fold_sequences
 from ..io.alphabet import N_RNA
 from ..io.profile import Alignment, profile_from_alignment
+from ..utils.tracing import span
 from . import combinators
 from .dag import build_dag, closure_features, dag_operators
 from .stem_kernel import StemKernel
@@ -60,36 +61,38 @@ def build_stem_dags(alignments: list[Alignment], config: StemLiteConfig, *, devi
     row_bpps = fold_sequences(flat_rows, config.bp_opts, device=device)
 
     dags = []
-    for a, (start, cnt) in zip(alignments, spans):
-        bpps = row_bpps[start: start + cnt]
-        avg = average_bpp(a, bpps)
-        dags.append(build_dag(a, avg, bpps, th=config.th))
+    with span("dag"):
+        for a, (start, cnt) in zip(alignments, spans):
+            bpps = row_bpps[start: start + cnt]
+            avg = average_bpp(a, bpps)
+            dags.append(build_dag(a, avg, bpps, th=config.th))
     return dags
 
 
 def _pack_stem_features(alignments: list[Alignment], dags, config: StemLiteConfig,
                         n_pad: int, lmax: int, device) -> dict[str, torch.Tensor]:
     """Stacked feature tensors on ``device`` for the given examples and pads."""
-    dag_feats = [dag_operators(d, config.loop_gap, n_pad) for d in dags]
-    stacked = {k: np.stack([f[k] for f in dag_feats]) for k in dag_feats[0]}
-    feats = closure_features(stacked, device)
+    with span("pack"):
+        dag_feats = [dag_operators(d, config.loop_gap, n_pad) for d in dags]
+        stacked = {k: np.stack([f[k] for f in dag_feats]) for k in dag_feats[0]}
+        feats = closure_features(stacked, device)
 
-    if not config.no_string:
-        prof = np.zeros((len(alignments), lmax, N_RNA), np.float32)
-        wts = np.zeros((len(alignments), lmax), np.float32)
-        lens = np.zeros(len(alignments), np.int32)
-        for i, (a, d) in enumerate(zip(alignments, dags)):
-            p = profile_from_alignment(a)
-            L = p.shape[0]
-            base = p[:, :N_RNA]
-            tot = base.sum(axis=1, keepdims=True)
-            prof[i, :L] = np.where(tot > 0, base / np.where(tot > 0, tot, 1.0), 0.0)
-            wts[i, :L] = d.pos_weight  # loop profiles weight the string kernel
-            lens[i] = L
-        feats["str_profile"] = torch.as_tensor(prof, device=device)
-        feats["str_weight"] = torch.as_tensor(wts, device=device)
-        feats["str_length"] = torch.as_tensor(lens, device=device)
-    return feats
+        if not config.no_string:
+            prof = np.zeros((len(alignments), lmax, N_RNA), np.float32)
+            wts = np.zeros((len(alignments), lmax), np.float32)
+            lens = np.zeros(len(alignments), np.int32)
+            for i, (a, d) in enumerate(zip(alignments, dags)):
+                p = profile_from_alignment(a)
+                L = p.shape[0]
+                base = p[:, :N_RNA]
+                tot = base.sum(axis=1, keepdims=True)
+                prof[i, :L] = np.where(tot > 0, base / np.where(tot > 0, tot, 1.0), 0.0)
+                wts[i, :L] = d.pos_weight  # loop profiles weight the string kernel
+                lens[i] = L
+            feats["str_profile"] = torch.as_tensor(prof, device=device)
+            feats["str_weight"] = torch.as_tensor(wts, device=device)
+            feats["str_length"] = torch.as_tensor(lens, device=device)
+        return feats
 
 
 def featurize_stem_examples(alignments: list[Alignment], config: StemLiteConfig, *,
@@ -162,11 +165,13 @@ def make_stem_lite_kernel_fn(config: StemLiteConfig, iters: int, *, device):
         string = string.to(device)
 
     def kernel_fn(x, y):
-        sv = stem(x, y, iters=iters)
+        with span("stem"):
+            sv = stem(x, y, iters=iters)
         if string is None:
             return combinators.weighted_log(sv, config.beta) if config.use_log else sv
-        tv = string(x["str_profile"], x["str_length"], y["str_profile"], y["str_length"],
-                    x["str_weight"], y["str_weight"])
+        with span("string"):
+            tv = string(x["str_profile"], x["str_length"], y["str_profile"], y["str_length"],
+                        x["str_weight"], y["str_weight"])
         if config.use_log:
             return combinators.add(combinators.weighted_log(sv, config.beta),
                                    combinators.weighted_log(tv, config.alpha))

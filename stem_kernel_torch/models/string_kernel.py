@@ -31,6 +31,7 @@ from torch import nn
 
 from ..io.alphabet import N_RNA
 from ..ops.recurrence import linear_recurrence, toeplitz_powers
+from ..utils.tracing import count
 from .ribosum_data import RIBOSUM_S
 
 
@@ -64,6 +65,8 @@ def profile_subst_scores(px: torch.Tensor, py: torch.Tensor,
 def gap_weighted_string_kernel(scores: torch.Tensor, gap: float) -> torch.Tensor:
     """K0[Lx][Ly] for a (B, Lx, Ly) score tensor (already zero-masked)."""
     bsz, lx, ly = scores.shape
+    count("string.calls")
+    count("string.rows", lx)  # the row loop's trips
     dt, dev = scores.dtype, scores.device
     gap = float(gap)
     tmat = toeplitz_powers(gap, ly, dtype=dt, device=dev)

@@ -14,8 +14,10 @@ kernel: one launch per level d = 1..max(lx), each over the valid blocks
 (i, i+d) of every pair.
 
 Dispatch: a CPU tensor takes :func:`full_stem_banded_log_reference`; a CUDA
-tensor launches the kernel or raises.  Nothing falls back.
-``full_stem_banded_log.launches`` counts the calls that ran the kernel.
+tensor launches the kernel or raises.  Nothing falls back.  The counters
+(utils.tracing) ``k6.calls`` count the calls that ran the kernel,
+``k6.host_syncs`` the wrapper's reads of max(lx), ``k6.levels`` the level
+launches.
 :func:`_div_scale` runs the kernel's division by a level's scale on its own,
 for the checks that hold it to IEEE division.
 """
@@ -25,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..models.full_stem import banded_inputs, banded_level0, full_stem_kernel_banded_log
+from ..utils.tracing import count, span
 from ._build import load_library
 
 # the CUDA kernel's largest band: two (W, W) f32 planes, W = 2*band+1, in one
@@ -87,41 +90,48 @@ def full_stem_banded_log(x_codes, y_codes, lx, ly, bp_x, bp_y, gap, stack, subst
         return full_stem_banded_log_reference(x_codes, y_codes, lx, ly, bp_x, bp_y, gap,
                                               stack, subst, band=band, ali_bound=ali_bound)
     dev = x_codes.device
-    x, y, lx, ly, bx, by, a, _ = banded_inputs(x_codes, y_codes, lx, ly, bp_x, bp_y,
-                                               ali_bound)
+    with span("k6.inputs"):
+        x, y, lx, ly, bx, by, a, _ = banded_inputs(x_codes, y_codes, lx, ly, bp_x, bp_y,
+                                                   ali_bound)
     bsz, n = x.shape
     W = 2 * band + 1
     out = torch.zeros(bsz, device=dev, dtype=torch.float32)  # block (0, lx) writes log K
-    max_lx = int(lx.max()) if bsz else 0
+    if bsz == 0:
+        return out
+    with span("k6.sync"):  # the host waits for the device here
+        max_lx = int(lx.max())
+    count("k6.host_syncs")
     if max_lx == 0:
         return out
-    # ping-pong window states, slot = level mod 2 (G0: mod 3, it is read at d-2)
-    plane = (bsz, n + 1, W, W)
-    k0 = torch.empty((2, *plane), device=dev)
-    g0 = torch.empty((3, *plane), device=dev)
-    k1 = torch.empty((2, *plane), device=dev)
-    g1 = torch.empty((2, *plane), device=dev)
-    k0_win, g0_win = banded_level0(gap, band, device=dev)
-    k0[0] = k0_win
-    g0[0] = g0_win
-    g0[2] = 0.0  # level -1
-    k1[0] = 0.0
-    g1[0] = 0.0
-    # scale[b, t+1]: max |K0| of level t (floor 1e-30); levels -1 and 0 are 1
-    scale = torch.full((bsz, n + 2), 1e-30, device=dev)
-    scale[:, :2] = 1.0
-    log_scale = torch.zeros((bsz, n + 1), device=dev)  # logS at each level
-    a = a.contiguous()
-    with torch.cuda.device(dev):  # the c_float arguments round gap, stack, subst to f32
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = load_library().full_stem_banded_f32(
-            x.data_ptr(), y.data_ptr(), bx.data_ptr(), by.data_ptr(), lx.data_ptr(),
-            ly.data_ptr(), a.data_ptr(), k0.data_ptr(), g0.data_ptr(), k1.data_ptr(),
-            g1.data_ptr(), scale.data_ptr(), log_scale.data_ptr(), out.data_ptr(),
-            bsz, n, band, max_lx, float(gap), float(stack), float(subst), stream)
-    if rc != 0:
-        raise RuntimeError(f"full_stem_banded kernel launch failed: CUDA error {rc}")
-    full_stem_banded_log.launches += 1
+    with span("k6.setup"):
+        # ping-pong window states, slot = level mod 2 (G0: mod 3, it is read at d-2)
+        plane = (bsz, n + 1, W, W)
+        k0 = torch.empty((2, *plane), device=dev)
+        g0 = torch.empty((3, *plane), device=dev)
+        k1 = torch.empty((2, *plane), device=dev)
+        g1 = torch.empty((2, *plane), device=dev)
+        k0_win, g0_win = banded_level0(gap, band, device=dev)
+        k0[0] = k0_win
+        g0[0] = g0_win
+        g0[2] = 0.0  # level -1
+        k1[0] = 0.0
+        g1[0] = 0.0
+        # scale[b, t+1]: max |K0| of level t (floor 1e-30); levels -1 and 0 are 1
+        scale = torch.full((bsz, n + 2), 1e-30, device=dev)
+        scale[:, :2] = 1.0
+        log_scale = torch.zeros((bsz, n + 1), device=dev)  # logS at each level
+        a = a.contiguous()
+        with torch.cuda.device(dev):  # the c_float arguments round gap, stack, subst to f32
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = load_library().full_stem_banded_f32(
+                x.data_ptr(), y.data_ptr(), bx.data_ptr(), by.data_ptr(), lx.data_ptr(),
+                ly.data_ptr(), a.data_ptr(), k0.data_ptr(), g0.data_ptr(), k1.data_ptr(),
+                g1.data_ptr(), scale.data_ptr(), log_scale.data_ptr(), out.data_ptr(),
+                bsz, n, band, max_lx, float(gap), float(stack), float(subst), stream)
+        if rc != 0:
+            raise RuntimeError(f"full_stem_banded kernel launch failed: CUDA error {rc}")
+    count("k6.calls")
+    count("k6.levels", max_lx)
     return out  # a pair with lx = 0 is never visited: log K = 0
 
 
@@ -138,5 +148,3 @@ def _div_scale(x: torch.Tensor, m: float) -> torch.Tensor:
         raise RuntimeError(f"full_stem_div_scale launch failed: CUDA error {rc}")
     return out
 
-
-full_stem_banded_log.launches = 0  # wrapper calls that launched the kernel

@@ -37,14 +37,15 @@ Dispatch: a CPU tensor takes the wrapper's plain version
 (``<wrapper>_reference``: the closure with an explicit Tu product, one
 ``bmm`` row at a time); a CUDA tensor launches the kernel in
 ``stem_kernel_torch/csrc/la_dp.cu`` or raises.  Nothing falls back.  Each
-wrapper counts its kernel launches in ``<wrapper>.launches``, and those on
-a lane geometry in ``<wrapper>.launches_lanes``.  Every kernel runs on a
-lane geometry, lanes a pair by columns a lane, that the route picks from the
-padded shape: :func:`log_route` for the log kernels (K2, K5, ``LOG_ROUTE``),
-:func:`exp_route` for the exp ones (K3, K4, ``EXP_ROUTE``), each placed by
-``chip_smoke.py``'s geometry table; (0, 0) is PR 2's one-warp kernel.
-:func:`la_log_factored_at`, :func:`la_log_at`, :func:`la_exp_factored_at`
-and :func:`la_exp_at` launch a given geometry.
+wrapper counts its kernel launches in the counter ``la.<wrapper>.calls``,
+and those on a lane geometry in ``la.<wrapper>.lanes`` (utils.tracing).
+Every kernel runs on a lane geometry, lanes a pair by columns a lane, that
+the route picks from the padded shape: :func:`log_route` for the log
+kernels (K2, K5, ``LOG_ROUTE``), :func:`exp_route` for the exp ones (K3,
+K4, ``EXP_ROUTE``), each placed by ``chip_smoke.py``'s geometry table;
+(0, 0) is the one-warp kernel.  :func:`la_log_factored_at`,
+:func:`la_log_at`, :func:`la_exp_factored_at` and :func:`la_exp_at` launch
+a given geometry.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ import functools
 
 import torch
 
+from ..utils.tracing import count
 from ._build import load_library
 
 NEG = -1e30  # log of an empty cell; never -inf, so logaddexp never meets inf - inf
@@ -319,8 +321,8 @@ def _launch(wrapper, entry: str, ptrs: list, lx, ly, dims: list, floats: list,
             *floats, out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
-    wrapper.launches += 1
-    wrapper.launches_lanes += int(dims[-2] != 0)
+    count(f"la.{wrapper.__name__}.calls")
+    count(f"la.{wrapper.__name__}.lanes", int(dims[-2] != 0))
     return out
 
 
@@ -400,7 +402,7 @@ def la_log(scores, lx, ly, beta, gap, ext, *, scores2=None, alpha=1.0) -> torch.
 def la_log_factored_at(geometry, fx, fy, lx, ly, alpha, beta, gap, ext) -> torch.Tensor:
     """:func:`la_log_factored` on the card at ``geometry`` = (lanes, cols),
     or (0, 0) for the one-warp kernel, whatever the route: how the geometry table is
-    measured.  Counts in ``la_log_factored.launches``."""
+    measured.  Counts in ``la.la_log_factored.calls``."""
     if fx.device.type != "cuda":
         raise ValueError("a lane geometry is a CUDA launch; the CPU has one plain version")
     return _factored(la_log_factored, "la_log_factored_f32", la_log_factored_reference,
@@ -418,7 +420,7 @@ def la_log_at(geometry, scores, lx, ly, beta, gap, ext, *, scores2=None,
 
 def la_exp_factored_at(geometry, fx, fy, lx, ly, alpha, beta, gap, ext) -> torch.Tensor:
     """:func:`la_exp_factored` on the card at ``geometry``, as
-    :func:`la_log_factored_at`.  Counts in ``la_exp_factored.launches``."""
+    :func:`la_log_factored_at`.  Counts in ``la.la_exp_factored.calls``."""
     if fx.device.type != "cuda":
         raise ValueError("a lane geometry is a CUDA launch; the CPU has one plain version")
     return _factored(la_exp_factored, "la_exp_factored_f32", la_exp_factored_reference,
@@ -432,11 +434,6 @@ def la_exp_at(geometry, scores, lx, ly, beta, gap, ext, *, scores2=None,
         raise ValueError("a lane geometry is a CUDA launch; the CPU has one plain version")
     return _materialised(la_exp, "la_exp_f32", la_exp_reference, scores, lx, ly, beta, gap,
                          ext, scores2, alpha, log=False, geometry=geometry)
-
-
-for _w in (la_log_factored, la_exp_factored, la_exp, la_log):
-    _w.launches = 0  # wrapper calls that launched the kernel
-    _w.launches_lanes = 0  # those of them on a lane geometry
 
 
 # ------------------------------------------------------------- dispatchers

@@ -26,9 +26,10 @@ On the CPU every name runs f32, as the JAX package's dots do on the CPU.
 
 Routes on the card, chosen by shape (:func:`cluster_route`; node counts
 padded to 16 here): pairs with max(Nx, Ny) <= 64 take the cluster kernel,
-one launch for the whole fixed point, one CTA a pair
-(``stem_fixed_point.launches``); the rest take the per-product route's
-tile kernel, also one launch (``stem_fixed_point.launches_wide``): a
+one launch for the whole fixed point, one CTA a pair (counters
+``k1.calls.cluster`` and ``k1.pairs.cluster``, utils.tracing); the rest take
+the per-product route's tile kernel, also one launch (``k1.calls.tiles``,
+``k1.pairs.tiles``): a
 pair's columns in strips of 64 (128 in bf16 on a 64-row tile), one strip a
 CTA of a cluster of up to 8, the constant operands put in the mode's form
 once a call, a producer warp feeding TMA stages to two wgmma warpgroups,
@@ -48,6 +49,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from ..utils.tracing import count, span
 from ._build import load_library
 
 PRECISIONS = ("highest", "high", "default")
@@ -253,20 +255,23 @@ def stem_fixed_point(ns, vx, vy, ax, ay, l, ux, uy, iters, *,
         raise ValueError(f"unknown precision {precision!r}")
     if ns.device.type not in ("cpu", "cuda"):
         raise ValueError(f"stem_fixed_point runs on cpu or cuda, not {ns.device}")
-    bsz, nx, ny = _check(ns, vx, vy, ax, ay, l, ux, uy, iters)
-    if ns.device.type == "cpu":
-        return stem_fixed_point_reference(ns, vx, vy, ax, ay, l, ux, uy, iters,
-                                          max_iters=max_iters)
-    if bsz == 0:
-        return torch.empty(0, device=ns.device, dtype=torch.float32)
-    it = torch.clamp(iters, max=max_iters).contiguous()
-    if cluster_route(nx, ny):
-        out = cluster_kernel(ns, vx, vy, ax, ay, l, ux, uy, it, precision=precision)
-        stem_fixed_point.launches += 1
-    else:
-        out = per_product_route(ns, vx, vy, ax, ay, l, ux, uy, it, precision=precision)
-        stem_fixed_point.launches_wide += 1
-    return out
+    with span("k1"):
+        bsz, nx, ny = _check(ns, vx, vy, ax, ay, l, ux, uy, iters)
+        if ns.device.type == "cpu":
+            return stem_fixed_point_reference(ns, vx, vy, ax, ay, l, ux, uy, iters,
+                                              max_iters=max_iters)
+        if bsz == 0:
+            return torch.empty(0, device=ns.device, dtype=torch.float32)
+        it = torch.clamp(iters, max=max_iters).contiguous()
+        if cluster_route(nx, ny):
+            out = cluster_kernel(ns, vx, vy, ax, ay, l, ux, uy, it, precision=precision)
+            route = "cluster"
+        else:
+            out = per_product_route(ns, vx, vy, ax, ay, l, ux, uy, it, precision=precision)
+            route = "tiles"
+        count(f"k1.calls.{route}")
+        count(f"k1.pairs.{route}", bsz)
+        return out
 
 
 def cluster_kernel(ns, vx, vy, ax, ay, l, ux, uy, iters, *, precision: str) -> torch.Tensor:
@@ -329,6 +334,3 @@ def per_product_route(ns, vx, vy, ax, ay, l, ux, uy, iters, *, precision: str) -
         raise RuntimeError(f"stem_fixed_point per-product kernel launch failed: CUDA error {rc}")
     return out
 
-
-stem_fixed_point.launches = 0  # calls that launched the cluster kernel
-stem_fixed_point.launches_wide = 0  # calls that ran the per-product route

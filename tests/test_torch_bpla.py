@@ -24,6 +24,7 @@ from stem_kernel_torch.models.blosum_data import BLOSUM62
 from stem_kernel_torch.models.featurize import bpla_features
 from stem_kernel_torch.ops import la as tl
 from stem_kernel_torch.ops import recurrence as tr
+from stem_kernel_torch.utils.tracing import counters
 
 PARAMS = (0.11, -8.0, -0.75)  # beta, gap, ext
 ALPHA = 4.5
@@ -35,6 +36,12 @@ def _t(*arrays):
 
 def _j(*arrays):
     return [jnp.asarray(a) for a in arrays]
+
+
+def _calls(wrapper, kind: str = "calls") -> int:
+    """The wrapper's launches (``kind`` "calls") or those on a lane geometry
+    ("lanes"), as the program counts them."""
+    return counters().get(f"la.{wrapper.__name__}.{kind}", 0)
 
 
 def _profiles(rng, b, n, k=4, empty=None):
@@ -387,7 +394,7 @@ def test_dispatchers_take_the_plain_versions_on_cpu():
     s, lx, ly = _ragged_scores(rng, lo=-3.0, hi=2.0)
     s2 = rng.uniform(-1.0, 1.0, s.shape).astype(np.float32)
     args = _t(s, lx, ly)
-    before = [w.launches for w in (tl.la_exp, tl.la_log)]
+    before = [_calls(w) for w in (tl.la_exp, tl.la_log)]
     np.testing.assert_array_equal(tl.la_exp_auto(*args, *PARAMS).numpy(),
                                   tl.la_exp_reference(*args, *PARAMS).numpy())
     np.testing.assert_array_equal(tl.la_log_auto(*args, *PARAMS).numpy(),
@@ -395,7 +402,7 @@ def test_dispatchers_take_the_plain_versions_on_cpu():
     aff = tl.la_log_affine_auto(args[0], torch.as_tensor(s2), args[1], args[2], ALPHA, *PARAMS)
     want = tl.la_log_reference(*args, *PARAMS, scores2=torch.as_tensor(s2), alpha=ALPHA)
     np.testing.assert_array_equal(aff.numpy(), want.numpy())
-    assert [w.launches for w in (tl.la_exp, tl.la_log)] == before  # no kernel on the CPU
+    assert [_calls(w) for w in (tl.la_exp, tl.la_log)] == before  # no kernel on the CPU
 
 
 @pytest.mark.parametrize("bad", ["int64 lengths", "rank 7", "rank 1", "strided",
@@ -503,10 +510,10 @@ def test_cuda_kernel_matches_plain_version(kernel):
         first3 = (s[:3].contiguous(), lx[:3], ly[:3], *PARAMS)
         kw = {"scores2": s2, "alpha": 0.5}
     reference = getattr(tl, f"{wrapper.__name__}_reference")
-    launches = wrapper.launches
+    launches = _calls(wrapper)
     got = wrapper(*args).cpu().numpy()
     torch.cuda.synchronize()
-    assert wrapper.launches == launches + 1
+    assert _calls(wrapper) == launches + 1
     want = reference(*args).cpu().numpy()
     if "log" in kernel:
         np.testing.assert_allclose(got, want, atol=3e-3)
@@ -541,9 +548,9 @@ def test_cuda_log_kernel_matches_plain_version(case):
         kw = {} if s2 is None else {"scores2": torch.as_tensor(s2).cuda(), "alpha": ALPHA}
         scalars, width = PARAMS, ops[0].shape[2]
     want = reference(*ops, *scalars, **kw).cpu().numpy()
-    launches = wrapper.launches
+    launches = _calls(wrapper)
     got = wrapper(*ops, *scalars, **kw).cpu().numpy()
-    assert wrapper.launches == launches + 1
+    assert _calls(wrapper) == launches + 1
     np.testing.assert_allclose(got, want, atol=3e-3)
     kw3 = {k: v[:3].contiguous() if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
     alone = wrapper(*[o[:3].contiguous() for o in ops], *scalars, **kw3).cpu().numpy()
@@ -655,9 +662,9 @@ def test_cuda_exp_kernel_matches_plain_version(case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU or interpret mode")
     wrapper, at, want, ops, scalars, kw = _exp_launch(case)
-    launches, lanes = wrapper.launches, wrapper.launches_lanes
+    launches, lanes = _calls(wrapper), _calls(wrapper, "lanes")
     got = wrapper(*ops, *scalars, **kw).cpu().numpy()
-    assert (wrapper.launches, wrapper.launches_lanes) == (launches + 1, lanes + 1)
+    assert (_calls(wrapper), _calls(wrapper, "lanes")) == (launches + 1, lanes + 1)
     np.testing.assert_allclose(got, want, rtol=1e-3)
     kw3 = {k: v[:3].contiguous() if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
     alone = wrapper(*[o[:3].contiguous() for o in ops], *scalars, **kw3).cpu().numpy()

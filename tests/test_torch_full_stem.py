@@ -28,6 +28,7 @@ from stem_kernel_torch.models import phmm as tp
 from stem_kernel_torch.models import ribosum_data as t_rib
 from stem_kernel_torch.ops import full_stem_banded as tk
 from stem_kernel_torch.ops import recurrence as tr
+from stem_kernel_torch.utils.tracing import counters
 
 WEIGHTS = (0.8, 1.0, 0.5)  # gap, stack, subst (the stem_kernel CLI defaults)
 COMP = {0: 3, 1: 2, 2: 1, 3: 0}
@@ -280,11 +281,11 @@ def test_batch_invariance(engine):
 
 def test_wrapper_takes_the_plain_version_on_cpu():
     ops = _t(*_pack([("gggaaacccaugcaagg", "gggaaaccc")]))
-    before = tk.full_stem_banded_log.launches
+    before = counters().get("k6.calls", 0)
     got = tk.full_stem_banded_log(*ops, *WEIGHTS, band=4)
     want = tk.full_stem_banded_log_reference(*ops, *WEIGHTS, band=4)
     assert np.array_equal(got.numpy(), want.numpy())
-    assert tk.full_stem_banded_log.launches == before  # no kernel on the CPU
+    assert counters().get("k6.calls", 0) == before  # no kernel on the CPU
 
 
 def test_band_40_matches_jax_scan():
@@ -378,10 +379,10 @@ def test_cuda_kernel_matches_plain_version(case):
     y, ly, by = (x, lx, bx) if case == "square" else _hairpins(rng, 9, 45, 20, 44)
     ali = 0.5 if case == "ali 0.5" else 0.0
     ops = [t.cuda() for t in _t(x, y, lx, ly, bx, by)]
-    launches = tk.full_stem_banded_log.launches
+    launches = counters().get("k6.calls", 0)
     got = tk.full_stem_banded_log(*ops, *WEIGHTS, band=8, ali_bound=ali).cpu().numpy()
     torch.cuda.synchronize()
-    assert tk.full_stem_banded_log.launches == launches + 1
+    assert counters().get("k6.calls", 0) == launches + 1
     want = tk.full_stem_banded_log_reference(*ops, *WEIGHTS, band=8, ali_bound=ali)
     np.testing.assert_allclose(got, want.cpu().numpy(), rtol=0, atol=1e-3)
     first3 = [o[:3].contiguous() for o in ops]

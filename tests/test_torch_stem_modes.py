@@ -24,6 +24,7 @@ from stem_kernel_tpu.models import stem_kernel as jsk
 from stem_kernel_tpu.ops.pallas_stem import stem_fixed_point as j_fixed_point
 from stem_kernel_torch.models import stem_kernel as tsk
 from stem_kernel_torch.ops import stem_fixed_point as fp
+from stem_kernel_torch.utils.tracing import counters
 
 from test_torch_stem_kernel import SEQS, _dags, _features, _pair_operands, _to_jax
 
@@ -87,6 +88,12 @@ def test_split_tf32_reconstructs():
     rec = hi.double() + lo.double()
     rel = ((rec - torch.as_tensor(x).double()).abs() / torch.as_tensor(x).double().abs()).max()
     assert float(rel) <= 2.0 ** -22
+
+
+def _k1_calls() -> tuple[int, int]:
+    """K1's launches as the program counts them: (cluster route, per-product route)."""
+    c = counters()
+    return c.get("k1.calls.cluster", 0), c.get("k1.calls.tiles", 0)
 
 
 def _rel(got: np.ndarray, want: np.ndarray) -> float:
@@ -190,11 +197,11 @@ def test_f32_modes_match_jax_highest(mode, shape):
 @pytest.mark.parametrize("precision", ["highest", "high", "default"])
 def test_cpu_wrapper_runs_f32_for_every_name(precision):
     ops, iters = _pair_operands("per_pair")
-    before = (fp.stem_fixed_point.launches, fp.stem_fixed_point.launches_wide)
+    before = _k1_calls()
     got = fp.stem_fixed_point(*ops, max_iters=iters, precision=precision).numpy()
     want = fp.stem_fixed_point_reference(*ops, max_iters=iters, mode="f32").numpy()
     assert np.array_equal(got, want)
-    assert (fp.stem_fixed_point.launches, fp.stem_fixed_point.launches_wide) == before
+    assert _k1_calls() == before
 
 
 def test_modes_and_routes():
@@ -390,10 +397,10 @@ def test_cuda_modes_match_plain_version(precision, shape):
     trips = torch.tensor([0, 1, 2, 3, 5, 6], dtype=torch.int32)
     args = [t.cuda() for t in mats + vecs + [trips]]
     wide = not fp.cluster_route(nx, ny)
-    before = fp.stem_fixed_point.launches_wide if wide else fp.stem_fixed_point.launches
+    before = _k1_calls()[wide]
     got = fp.stem_fixed_point(*args, max_iters=6, precision=precision).cpu().numpy()
     torch.cuda.synchronize()
-    after = fp.stem_fixed_point.launches_wide if wide else fp.stem_fixed_point.launches
+    after = _k1_calls()[wide]
     assert after == before + 1
     mode = fp.MODES[precision]
     want = fp.stem_fixed_point_reference(*args, max_iters=6, mode=mode).cpu().numpy()
