@@ -29,7 +29,9 @@ Phases (the first failure exits non-zero; nothing is caught):
    100 dinucleotide shuffles (length 120, fixed seed), ``svm_tools train``,
    then the predict flow on 40 held-out sequences (the DAG scan and the SMO
    on the port's native host library); both K1 routes' launch
-   counts must rise, the Gram must be finite, symmetric with unit diagonal, the
+   counts must rise, every string-kernel call must launch its DP kernel
+   (``string.calls.kernel`` equal to ``string.calls``, ``string.rows``
+   0), the Gram must be finite, symmetric with unit diagonal, the
    predictions written; a small subset is rerun with ``--device cpu`` (the
    plain versions): the two Grams must agree within the 1.4e-2 CLI band and
    the two folds within 5e-4 BPP;
@@ -141,7 +143,9 @@ Phases (the first failure exits non-zero; nothing is caught):
    ``simpal``: train on phase 16's corpus, ``svm_tools train``, predict on
    20 + 20 held-out sequences; each Gram finite, symmetric, unit diagonal;
    ``--device cpu`` against ``cuda`` on 8 sequences within 5e-7, 1e-4, 1e-6
-   and 1e-4; each train Gram's pairs/s and busy share;
+   and 1e-4 (the card's Gram through the string kernel's DP kernel for
+   all but ``simpal``, the CPU's through the plain row loop); each train
+   Gram's pairs/s and busy share;
 19. the native host code and the Gram-engine options on the stem path:
    (a) the native DAG scan against the Python scan on the BPPs of phase 4's
    200 sequences, identical arrays, each one's ms a sequence beside the
@@ -202,10 +206,26 @@ Phases (the first failure exits non-zero; nothing is caught):
    count; a rank that exits non-zero fails the phase.  Printed: each job's
    one-rank and two-rank walls (the CLI, and its Gram passes), and
    ``scaling_efficiency`` of the stem kernel on 1 and 2 ranks, all labelled
-   "two ranks sharing one card: not a scaling figure".
+   "two ranks sharing one card: not a scaling figure";
+22. the string kernel's DP kernel (``csrc/string_dp.cu``) against the plain
+   row loop on the card, within rel 1e-4: ``StringKernel`` (scores built in
+   the kernel) with the RIBOSUM and the match/mismatch tables on
+   ``stem_kernel_lite``'s string features of 200 sequences of 110-150 nt
+   (B = 256 random pairs, as the Gram gives them), and on random profiles
+   with all-gap columns and zero weights at widths 1, 31, 32, 33, 150 and
+   1500, Lx = Ly and Lx != Ly; a given score tensor (the string_kernel
+   CLI's exact-match scores) at the same widths; a pair alone, the batch
+   rolled by one, its first 64 pairs and the batch padded 40 columns wider
+   must give the same values bit for bit; then a call's time (CUDA events,
+   in turns with the plain loop, and over 50 calls), its device time (CUDA
+   graph), the plain loop's time and the bound at the Gram's shape, the
+   score-tensor route's at B = 256, 152 x 152, and both at 1500 x 1500.
 
 Before each path every launch count is set to 0, and it is read just after;
-phases 16-18 must leave every count at 0; phase 19 must launch K1 and K2;
+phases 16-18 must leave every K1-K6 count at 0, and launch the string
+kernel's DP kernel on every string-kernel call of ``la_kernel_lite`` (both
+runs) and ``string_kernel``, with no plain-loop row, and no string-kernel
+call elsewhere; phase 19 must launch K1 and K2;
 phase 20's alifold and CONTRAfold paths K2, and K1 on both routes; phase
 21 reads each rank's counts of each job.
 The line before the last lists every kernel with its launches on the main
@@ -215,7 +235,9 @@ the operations this run's inputs need over the peak of the unit that runs
 them, 67 TFLOP/s f32, 495 TFLOP/s TF32 (three passes for 3xTF32) or 989
 TFLOP/s bf16 (the H100 SXM's published peaks).  K1 has two entries, one a
 route, each in the main path's mode, "high", at its busiest shape; their
-``library_ms`` is the f32 torch.bmm chain, K2-K6's null.  ``ms`` is CUDA events around repeated wrapper
+``library_ms`` is the f32 torch.bmm chain, K2-K6's null.  The string
+kernel's DP kernel (SK) replaces no Pallas kernel (``replaces`` null); its
+launches are the stem train flow's (phase 4), its numbers phase 22's.  ``ms`` is CUDA events around repeated wrapper
 calls, host time between launches included; ``device_ms`` the same calls
 captured in a CUDA graph and replayed under CUDA events, except K6's: its
 wrapper reads max(lx) on the host, so its ``device_ms`` is the summed time
@@ -304,6 +326,19 @@ SMALL_N = 4  # sequences a class of the cpu-against-cuda runs
 # the string-family CLIs: (name, flags, cpu-against-cuda band of the Gram)
 STRING_CLIS = (("la_kernel_lite", [], 5e-7), ("la_kernel_lite", ["--use-bp"], 1e-4),
                ("string_kernel", [], 1e-6), ("simpal", [], 1e-4))
+# phase 22: the string kernel's DP kernel
+STRING_BATCH = 256  # pairs of a string-kernel call in the Gram
+STRING_LENS = (110, 124, 137, 150)  # stem_kernel_lite's family lengths (the benchmark's 110-130, and longer)
+STRING_FAMILY = 25  # sequences of each length (and as many shuffles): 200
+STRING_EDGES = (1, 31, 32, 33, 150, LONG_LY)  # the kernel's 32-column chunk edges, a long row
+STRING_OTHER = {1: 33, 31: 1, 32: 33, 33: 32, 150: 31, LONG_LY: 150}  # the other side's width
+STRING_EDGE_BATCH = 16
+STRING_WIDE_W = 0.3  # largest weight of the cases past 150 columns, whose values stay finite
+STRING_WIDE_GAP = 0.5  # and the exact-match cases' gap there
+# operations a cell needs: the profile score from the row's and column's sums
+# (4 FMA, a product, a compare, a division, two products: 13) and the DP
+# (v, K1, G1's FMA, K0, G0's FMA: 7)
+STRING_PROFILE_OPS = 20
 TRACE_N = 20  # sequences a class of the --trace-dir run
 SMO_N = 2000  # points of the random PSD Gram of the SMO comparison
 SMO_DIM = 10  # their dimension (RBF kernel, gamma 1 / (2 SMO_DIM))
@@ -1072,10 +1107,13 @@ def slice4_phases(dev, smi: str, reset_counts, counts) -> None:
     from stem_kernel_torch.models.string_kernel import StringKernel, plain_string_kernel
     from stem_kernel_torch.opt.optimizer import optimize_kernel_params
 
-    def no_kernels(phase: str) -> None:
-        got = counts()
-        print(f"{phase}: K1-K6 launch counts {got}")
+    def no_kernels(phase: str, string: bool = False) -> None:
+        """No K1-K6 launch; the string DP kernel on every string-kernel call
+        where ``string``, else no string-kernel call."""
+        got, sk = counts(), string_counts()
+        print(f"{phase}: K1-K6 launch counts {got}; string kernel {sk}")
         check(not any(got.values()), f"{phase} launched a K1-K6 kernel: {got}")
+        check_string_kernel(phase, sk, string)
 
     fam, shuf, overflow_seqs = optimizer_corpus()
     pos, tpos = fam[:N_TRAIN], fam[N_TRAIN:]
@@ -1288,7 +1326,8 @@ def slice4_phases(dev, smi: str, reset_counts, counts) -> None:
                  "+1", p("pos.fa"), "-1", p("neg.fa"),
                  "--test", "+1", p("tpos.fa"), "-1", p("tneg.fa")])
         predict_s = time.perf_counter() - t0
-        no_kernels(label)
+        string = name != "simpal"  # la_kernel_lite and string_kernel run the string kernel
+        no_kernels(label, string)
         got_labels, gram = read_precomputed(p(f"{tag}.dat"))
         gram_checks(label, gram, n, got_labels, train_labels)
         auc = predictions(p(f"{tag}_pred.txt"), 2 * N_TEST, label)
@@ -1322,7 +1361,7 @@ def slice4_phases(dev, smi: str, reset_counts, counts) -> None:
         torch.cuda.synchronize()
         gram_s = time.perf_counter() - t0
         busy = device_busy(PairKernelEngine(kernel_fn, gram_feats, device=dev), n, "")
-        no_kernels(f"{label} Gram")
+        no_kernels(f"{label} Gram", string)
         print(f"{label} on {smi}: train Gram {gram.shape}, {n_pairs / gram_s:.1f} pairs/s "
               f"({gram_s:.3f} s, batch 256; first 20 batches traced: {busy}); train flow "
               f"{train_s:.2f} s, predict flow {2 * N_TEST / predict_s:.2f} rows/s "
@@ -1331,6 +1370,179 @@ def slice4_phases(dev, smi: str, reset_counts, counts) -> None:
         check(diff <= band, f"{label}: cuda and cpu Grams disagree")
     print(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
     tmp_dir.cleanup()
+
+
+def string_profiles(rng: np.random.Generator, n: int, lo: int, hi: int, pad: int,
+                    wmax: float) -> tuple:
+    """(profiles (n, pad, 4), weights (n, pad), lengths (n,)): Dirichlet
+    columns, a tenth of them all-gap (zero), a tenth of the weights 0 and the
+    rest U(0, wmax), lengths lo..hi, zero past each length."""
+    lens = rng.integers(lo, hi + 1, n).astype(np.int32)
+    prof = rng.dirichlet(np.ones(4), size=(n, pad)).astype(np.float32)
+    prof[rng.random((n, pad)) < 0.1] = 0.0
+    w = rng.uniform(0, wmax, (n, pad)).astype(np.float32)
+    w[rng.random((n, pad)) < 0.1] = 0.0
+    past = np.arange(pad)[None, :] >= lens[:, None]
+    prof[past] = 0.0
+    w[past] = 0.0
+    return prof, w, lens
+
+
+def string_case(rng: np.random.Generator, b: int, xs: tuple, ys: tuple, wmax: float,
+                dev) -> list:
+    """[px, lx, py, ly, wx, wy] of ``b`` random pairs on ``dev``; ``xs``,
+    ``ys``: (shortest, longest, padded width) of each side."""
+    px, wx, lx = string_profiles(rng, b, *xs, wmax)
+    py, wy, ly = string_profiles(rng, b, *ys, wmax)
+    return [torch.as_tensor(a, device=dev) for a in (px, lx, py, ly, wx, wy)]
+
+
+def exact_case(rng: np.random.Generator, b: int, xs: tuple, ys: tuple, gap: float,
+               dev) -> torch.Tensor:
+    """The exact-match score tensor (B, Lx, Ly) of ``b`` random RNA code
+    pairs, as the string_kernel CLI builds it."""
+    from stem_kernel_torch.models.string_kernel import exact_match_scores
+
+    def side(lo, hi, pad):
+        return (torch.as_tensor(rng.integers(0, 4, (b, pad)).astype(np.uint8), device=dev),
+                torch.as_tensor(rng.integers(lo, hi + 1, b).astype(np.int32), device=dev))
+
+    (x, lx), (y, ly) = side(*xs), side(*ys)
+    return exact_match_scores(x, lx, y, ly, gap)
+
+
+def string_phase(dev, smi: str) -> dict:
+    """Phase 22: the string kernel's DP kernel (csrc/string_dp.cu) against
+    the plain row loop on the card, in both score modes; bit-identical
+    values alone, at batch 256, at another batch position and padded wider;
+    its time against the plain loop's and its bound.  Returns its entry of
+    the kernels line (no launches: phase 4 counts them)."""
+    from stem_kernel_torch.io.profile import Alignment
+    from stem_kernel_torch.models.composite import StemLiteConfig, featurize_stem_examples
+    from stem_kernel_torch.models.string_kernel import (
+        StringKernel, gap_weighted_string_kernel, gap_weighted_string_kernel_reference,
+    )
+    from stem_kernel_torch.utils.shuffle import dinucleotide_shuffle
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 22)
+    cfg = StemLiteConfig()
+    ribosum = StringKernel(cfg.gap, alpha=cfg.alpha).to(dev)
+    mm = StringKernel(cfg.gap, match=cfg.str_match, mismatch=cfg.str_mismatch).to(dev)
+    worst = {"max_rel_err": 0.0, "max_abs_err": 0.0}
+
+    def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
+        d = (got.double() - want.double()).abs()
+        return float(d.max()), float((d / want.double().abs()).max())
+
+    def parity(label: str, kernel, plain) -> torch.Tensor:
+        before = counter("string.calls.kernel")
+        got = kernel()
+        torch.cuda.synchronize()
+        check(counter("string.calls.kernel") == before + 1, f"{label}: no string DP launch")
+        want = plain()
+        check(bool(torch.isfinite(want).all()), f"{label}: the plain loop is not finite")
+        check(bool(torch.isfinite(got).all()), f"{label}: the kernel is not finite")
+        ab, rel = rel_err(got, want)
+        worst["max_rel_err"] = max(worst["max_rel_err"], rel)
+        worst["max_abs_err"] = max(worst["max_abs_err"], ab)
+        print(f"string DP parity, {label}: max rel {rel:.3e} (gate {KERNEL_RTOL}), values "
+              f"{float(want.min()):.4g}..{float(want.max()):.4g}")
+        check(rel <= KERNEL_RTOL, f"{label}: the string DP kernel disagrees with the plain loop")
+        return got
+
+    def same_bits(label: str, got: torch.Tensor, want: torch.Tensor) -> None:
+        check(torch.equal(got, want), f"{label}: not bit-identical")
+
+    # the Gram's shapes: stem_kernel_lite's string features of 200 sequences
+    # of 110-150 nt, 256 random pairs
+    seqs = [s for length in STRING_LENS for s in make_family(rng, STRING_FAMILY, length)]
+    seqs += [dinucleotide_shuffle(s, rng) for s in seqs]
+    feats, _ = featurize_stem_examples([Alignment(rows=[s]) for s in seqs], cfg, device=dev)
+
+    def gram_pairs(ix, iy):
+        ix, iy = torch.as_tensor(ix, device=dev), torch.as_tensor(iy, device=dev)
+        return [feats[k].index_select(0, i) for k, i in (
+            ("str_profile", ix), ("str_length", ix), ("str_profile", iy), ("str_length", iy),
+            ("str_weight", ix), ("str_weight", iy))]
+
+    ix = rng.integers(0, len(seqs), STRING_BATCH)
+    iy = rng.integers(0, len(seqs), STRING_BATCH)
+    gram = gram_pairs(ix, iy)
+    shape = (f"B={STRING_BATCH} L {int(feats['str_length'].min())}-"
+             f"{int(feats['str_length'].max())} (pad {feats['str_profile'].shape[1]})")
+    got = parity(f"Gram {shape}, RIBOSUM", lambda: ribosum(*gram),
+                 lambda: ribosum.reference(*gram))
+    # both f32 evaluations against the plain loop in f64 (not gated)
+    exact = StringKernel(cfg.gap, alpha=cfg.alpha).to(dev, torch.float64).reference(
+        *[t.double() if t.is_floating_point() else t for t in gram])
+    f64 = {name: rel_err(v, exact)[1] for name, v in (
+        ("kernel", got), ("plain f32 loop", ribosum.reference(*gram)))}
+    print(f"string DP, Gram {shape}, RIBOSUM, max rel against the plain loop in f64: {f64}")
+    parity(f"Gram {shape}, match/mismatch", lambda: mm(*gram), lambda: mm.reference(*gram))
+    # bit for bit: each of the first 3 pairs alone, the batch rolled by 1, the
+    # first 64 pairs, and the batch padded 40 columns wider on both sides
+    for k in range(3):
+        same_bits(f"Gram pair {k} alone", ribosum(*gram_pairs(ix[k:k + 1], iy[k:k + 1])),
+                  got[k:k + 1])
+    same_bits("Gram batch rolled by 1", ribosum(*gram_pairs(np.roll(ix, 1), np.roll(iy, 1))),
+              torch.roll(got, 1))
+    same_bits("Gram first 64 pairs", ribosum(*gram_pairs(ix[:64], iy[:64])), got[:64])
+    wide = [torch.nn.functional.pad(t, (0, 0, 0, 40) if t.dim() == 3 else (0, 40))
+            if t.dim() > 1 else t for t in gram]
+    same_bits("Gram padded 40 columns wider", ribosum(*wide), got)
+
+    # widths around the 32-column chunks and a long row, Lx = Ly and Lx != Ly;
+    # zero weights and all-gap columns in every case
+    for width in STRING_EDGES:
+        other = STRING_OTHER[width]
+        wmax = 1.0 if max(width, other) <= 150 else STRING_WIDE_W
+        b = STRING_EDGE_BATCH
+        for lab, xs, ys in (("Lx = Ly", (width, width, width), (width, width, width)),
+                            ("Lx != Ly", (width, width, width), (1, other, other))):
+            case = string_case(rng, b, xs, ys, wmax, dev)
+            kern = ribosum if lab == "Lx = Ly" else mm
+            got = parity(f"profiles {lab} {xs[2]} x {ys[2]}, B={b}",
+                         lambda: kern(*case), lambda: kern.reference(*case))
+            alone = [t[1:2].contiguous() for t in case]
+            same_bits(f"profiles {lab} {xs[2]} x {ys[2]} pair 1 alone", kern(*alone), got[1:2])
+        gap = cfg.gap if max(width, other) <= 150 else STRING_WIDE_GAP
+        scores = exact_case(rng, b, (1, width, width), (1, other, other), gap, dev)
+        got = parity(f"exact-match scores {width} x {other}, B={b}, gap {gap}",
+                     lambda: gap_weighted_string_kernel(scores, gap),
+                     lambda: gap_weighted_string_kernel_reference(scores, gap))
+        same_bits(f"exact-match scores {width} x {other} pair 1 alone",
+                  gap_weighted_string_kernel(scores[1:2].contiguous(), gap), got[1:2])
+
+    # times at the Gram's shape (CUDA events; plain, kernel, kernel, plain), a
+    # call's device time (CUDA graph) and the bound
+    def kernel():
+        return ribosum(*gram)
+
+    def plain():
+        return ribosum.reference(*gram)
+
+    k3_ms, p_ms = timed_pair(kernel, plain, 3)
+    k_ms = cuda_ms(kernel, 50)
+    dev_ms = graph_ms(kernel, 50)
+    cells = float((gram[1].double() * gram[3].double()).sum())
+    nbytes = sum(t.numel() * t.element_size() for t in gram) + 4 * STRING_BATCH
+    bound_ms, bound_by = bound(nbytes, STRING_PROFILE_OPS * cells)
+    scores = exact_case(rng, STRING_BATCH, (110, 150, 152), (110, 150, 152), cfg.gap, dev)
+    s_ms, sp_ms = timed_pair(lambda: gap_weighted_string_kernel(scores, cfg.gap),
+                             lambda: gap_weighted_string_kernel_reference(scores, cfg.gap), 3)
+    long_case = string_case(rng, STRING_EDGE_BATCH, (LONG_LY, LONG_LY, LONG_LY),
+                            (LONG_LY, LONG_LY, LONG_LY), STRING_WIDE_W, dev)
+    l_ms, lp_ms = timed_pair(lambda: ribosum(*long_case), lambda: ribosum.reference(*long_case), 1)
+    print(f"times on {smi}: string DP (profiles) {k_ms:.4f} ms a call ({k3_ms:.4f} in turns "
+          f"with the plain loop), device {dev_ms:.4f} ms (graph), plain loop {p_ms:.3f} ms, bound {bound_ms:.5f} ms by {bound_by} "
+          f"({cells:.0f} cells, {STRING_PROFILE_OPS} operations a cell; {shape}); exact-match "
+          f"scores {s_ms:.4f} ms vs plain {sp_ms:.3f} ms (B={STRING_BATCH}, 152 x 152); "
+          f"{LONG_LY} x {LONG_LY} profiles {l_ms:.3f} ms vs plain {lp_ms:.3f} ms "
+          f"(B={STRING_EDGE_BATCH})")
+    print(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+    return {**worst, "ms": k_ms, "device_ms": dev_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "shape": shape}
 
 
 def cpu_model() -> str:
@@ -1975,6 +2187,22 @@ def kernel_counters():
     return reset_counters, counts
 
 
+def string_counts() -> dict[str, int]:
+    """The string kernel's counters: its calls, the launches of its DP kernel
+    (csrc/string_dp.cu) and the plain row loop's rows."""
+    return {k: counter(f"string.{k}") for k in ("calls", "calls.kernel", "rows")}
+
+
+def check_string_kernel(label: str, got: dict, called: bool) -> None:
+    """Every string-kernel call of a path on the card launched the DP kernel
+    and none ran the plain loop (``called``), or the path never called it."""
+    if called:
+        check(got["calls.kernel"] > 0 and got["calls.kernel"] == got["calls"]
+              and got["rows"] == 0, f"{label}: string kernel calls off the DP kernel: {got}")
+    else:
+        check(not any(got.values()), f"{label} called the string kernel: {got}")
+
+
 @contextlib.contextmanager
 def gram_timer(acc: list):
     """Add the wall time of every ``PairKernelEngine.run_pairs`` call (a
@@ -2413,6 +2641,7 @@ def main() -> int:
     train_s = time.perf_counter() - t0
     train_launches = counter("k1.calls.cluster")
     train_wide = counter("k1.calls.tiles")
+    train_string = counter("string.calls.kernel")
     svm_tools.train_main([p("km.dat"), p("km.model")])
     t0 = time.perf_counter()
     stem_kernel_lite.main(["--device", "cuda", "-n", p("test.dat"),
@@ -2420,7 +2649,7 @@ def main() -> int:
                            "+1", p("pos.fa"), "-1", p("neg.fa"),
                            "--test", "+1", p("tpos.fa"), "-1", p("tneg.fa")])
     predict_s = time.perf_counter() - t0
-    stem_counts = counts()
+    stem_counts, stem_string = counts(), string_counts()
     launches, wide = stem_counts["K1"], counter("k1.calls.tiles")
     labels, g = read_precomputed(p("km.dat"))
     g_stem = g
@@ -2443,8 +2672,10 @@ def main() -> int:
     print(f"stem path (--precision {cfg.precision}, K1 in {MODES[cfg.precision]}): train Gram "
           f"{g.shape}, {n * (n + 1) // 2} pairs, K1 launches {train_launches} (train) "
           f"{launches} (train + predict), per-product route {train_wide} (train) "
-          f"{wide} (train + predict); all counts {stem_counts}")
+          f"{wide} (train + predict); all counts {stem_counts}; string kernel {stem_string}, "
+          f"its DP kernel's launches {train_string} (train)")
     check(launches > 0 and train_launches > 0, "the stem path never launched K1's cluster kernel")
+    check_string_kernel("the stem path", stem_string, True)
     check(wide > 0, "the stem path never ran K1's per-product route")
     report["K1w"]["launches"] = wide
     gram_checks("stem", g, n, labels, train_labels)
@@ -3101,6 +3332,7 @@ def main() -> int:
     slice7_phase(smi, reset_counts, counts, (pos, neg, tpos, tneg), (ppos, pneg), prof_feats,
                  full_train, {"km.dat": g_stem, "bpla.dat": g_bpla, "flagship.npy": g_fwd,
                               "la.dat": g_la})
+    report["SK"] = {**string_phase(dev, smi), "launches": train_string}
 
     meta = {
         "K1": ("stem_fixed_point", "stem_kernel_torch/csrc/stem_fixed_point.cu",
@@ -3117,6 +3349,7 @@ def main() -> int:
                "stem_kernel_tpu/ops/pallas_la.py:281"),
         "K6": ("full_stem_banded_log", "stem_kernel_torch/csrc/full_stem_banded.cu",
                "stem_kernel_tpu/ops/pallas_full_stem.py:426"),
+        "SK": ("string_dp_profile", "stem_kernel_torch/csrc/string_dp.cu", None),
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     extra = ("device_ms", "max_rel_err", "mode", "shape", "launches_a_call", "max_abs_err_lanes",

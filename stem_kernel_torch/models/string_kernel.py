@@ -10,10 +10,20 @@ of stem_kernel/stem_kernel_lite/string_kernel.cpp:66-132):
     G0[i][j] = G1[j] + G0[i-1][j]*gap
 
 with K0[*][0] = K0[0][*] = 1 and the G0 boundary gap^i / gap^j; the result
-is K0[|x|][|y|].  The per-cell scores are one (B, Lx, Ly) tensor; the row
-recursion is a Python loop over rows, and each row's G1 recurrence is a
-product with the (Ly, Ly) Toeplitz matrix of gap powers
-(:mod:`..ops.recurrence`), exact at any length.
+is K0[|x|][|y|].
+
+Routing: a CPU tensor takes the plain version: the per-cell scores as one
+(B, Lx, Ly) tensor and the row recursion as a Python loop over rows, each
+row's G1 recurrence a product with the (Ly, Ly) Toeplitz matrix of gap
+powers (:mod:`..ops.recurrence`), exact at any length
+(:func:`gap_weighted_string_kernel_reference`, :meth:`StringKernel.reference`).
+A CUDA tensor launches the hand-written kernel of :mod:`..ops.string_dp`,
+one launch a call, or raises: ``StringKernel`` builds the scores in the
+kernel, :func:`gap_weighted_string_kernel` hands it its score tensor.
+Nothing falls back, and the kernel has no backward.  The counters
+(utils.tracing): ``string.calls`` every call, ``string.rows`` the plain
+loop's trips, ``string.calls.kernel`` and ``string.pairs.kernel`` the
+kernel's launches and pairs.
 
 The plain exact-match string kernel (string_kernel/string_kernel.cpp:11-51)
 is the same recursion with v = G0[i-1][j-1] * gap^2 * [x_i == y_j]
@@ -31,6 +41,7 @@ from torch import nn
 
 from ..io.alphabet import N_RNA
 from ..ops.recurrence import linear_recurrence, toeplitz_powers
+from ..ops.string_dp import string_dp_profile, string_dp_scores
 from ..utils.tracing import count
 from .ribosum_data import RIBOSUM_S
 
@@ -62,10 +73,28 @@ def profile_subst_scores(px: torch.Tensor, py: torch.Tensor,
                        num / torch.where(zero, torch.ones_like(den), den))
 
 
+def masked_profile_scores(px, lx, py, ly, wx, wy, subst: torch.Tensor) -> torch.Tensor:
+    """StringKernel's (B, Lx, Ly) scores: :func:`profile_subst_scores` times
+    wx[i] wy[j], zero outside either length."""
+    scores = profile_subst_scores(px, py, subst)
+    scores = scores * (wx[:, :, None] * wy[:, None, :])
+    mask_x = torch.arange(px.shape[1], device=px.device)[None, :] < lx[:, None]
+    mask_y = torch.arange(py.shape[1], device=py.device)[None, :] < ly[:, None]
+    return scores * (mask_x[:, :, None] & mask_y[:, None, :])
+
+
 def gap_weighted_string_kernel(scores: torch.Tensor, gap: float) -> torch.Tensor:
-    """K0[Lx][Ly] for a (B, Lx, Ly) score tensor (already zero-masked)."""
-    bsz, lx, ly = scores.shape
+    """K0[Lx][Ly] for a (B, Lx, Ly) score tensor (already zero-masked): the
+    plain row loop on the CPU, the kernel on the card."""
     count("string.calls")
+    if scores.device.type == "cpu":
+        return gap_weighted_string_kernel_reference(scores, gap)
+    return string_dp_scores(scores, gap)
+
+
+def gap_weighted_string_kernel_reference(scores: torch.Tensor, gap: float) -> torch.Tensor:
+    """The plain version of :func:`gap_weighted_string_kernel`, on any device."""
+    bsz, lx, ly = scores.shape
     count("string.rows", lx)  # the row loop's trips
     dt, dev = scores.dtype, scores.device
     gap = float(gap)
@@ -109,16 +138,23 @@ class StringKernel(nn.Module):
         px, py: (B, L, N_RNA) profiles; lx, ly: (B,) true lengths;
         wx, wy: (B, L) position weights or None (treated as 1).
         """
-        if wx is None:
-            wx = torch.ones(px.shape[:2], dtype=px.dtype, device=px.device)
-        if wy is None:
-            wy = torch.ones(py.shape[:2], dtype=py.dtype, device=py.device)
-        scores = profile_subst_scores(px, py, self.subst)
-        scores = scores * (wx[:, :, None] * wy[:, None, :])
-        mask_x = torch.arange(px.shape[1], device=px.device)[None, :] < lx[:, None]
-        mask_y = torch.arange(py.shape[1], device=py.device)[None, :] < ly[:, None]
-        scores = scores * (mask_x[:, :, None] & mask_y[:, None, :])
-        return gap_weighted_string_kernel(scores, self.gap)
+        wx, wy = _weights(px, wx), _weights(py, wy)
+        if px.device.type == "cpu":
+            return gap_weighted_string_kernel(
+                masked_profile_scores(px, lx, py, ly, wx, wy, self.subst), self.gap)
+        count("string.calls")
+        return string_dp_profile(px, py, self.subst, wx, wy, lx, ly, self.gap)
+
+    def reference(self, px, lx, py, ly, wx=None, wy=None) -> torch.Tensor:
+        """The plain version of :meth:`forward`, on any device."""
+        wx, wy = _weights(px, wx), _weights(py, wy)
+        return gap_weighted_string_kernel_reference(
+            masked_profile_scores(px, lx, py, ly, wx, wy, self.subst), self.gap)
+
+
+def _weights(p: torch.Tensor, w):
+    """Position weights (B, L): ``w``, or ones where it is None."""
+    return torch.ones(p.shape[:2], dtype=p.dtype, device=p.device) if w is None else w
 
 
 def exact_match_scores(x: torch.Tensor, lx: torch.Tensor, y: torch.Tensor,

@@ -124,4 +124,12 @@ def load_library() -> ctypes.CDLL:
     fn = lib.full_stem_div_scale_f32
     fn.argtypes = [p, i, f, p, p]
     fn.restype = ctypes.c_int
+    # (px, py, subst, wx, wy, lx, ly, batch, max_lx, max_ly, gap, out, stream)
+    fn = lib.string_dp_profile_f32
+    fn.argtypes = [p] * 7 + [i] * 3 + [f, p, p]
+    fn.restype = ctypes.c_int
+    # (scores, batch, max_lx, max_ly, gap, out, stream)
+    fn = lib.string_dp_scores_f32
+    fn.argtypes = [p] + [i] * 3 + [f, p, p]
+    fn.restype = ctypes.c_int
     return lib
