@@ -37,6 +37,7 @@ from ..ops.la import (
 from ..ops.recurrence import (
     linear_recurrence, logsumexp_recurrence, maxplus_recurrence, toeplitz_powers_rows,
 )
+from ..utils.tracing import span
 
 NEG_LARGE = -1e30
 
@@ -333,14 +334,16 @@ class BPLAKernel(nn.Module):
         return _f32(self.alpha) * w_pair + w_unpair
 
     def factors(self, d, side: str) -> torch.Tensor:
-        """(B, L, 2+N) low-rank score factors for one side."""
+        """(B, L, 2+N) low-rank score factors for one side, the span
+        ``bpla.factors``."""
         prof = d["profile"]
-        if self.no_bp:
-            zero = torch.zeros_like(prof[..., 0])
-            return bpla_factors(prof, zero, zero, torch.ones_like(zero),
+        with span("bpla.factors"):
+            if self.no_bp:
+                zero = torch.zeros_like(prof[..., 0])
+                return bpla_factors(prof, zero, zero, torch.ones_like(zero),
+                                    self.score_table, side=side)
+            return bpla_factors(prof, d["p_left"], d["p_right"], d["p_unpair"],
                                 self.score_table, side=side)
-        return bpla_factors(prof, d["p_left"], d["p_right"], d["p_unpair"],
-                            self.score_table, side=side)
 
     def _max(self, x, y) -> torch.Tensor:
         s = self.scores(x, y)

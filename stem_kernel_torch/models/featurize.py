@@ -14,6 +14,7 @@ import numpy as np
 
 from ..io.alphabet import N_RNA, encode
 from ..io.profile import Alignment, profile_from_alignment
+from ..utils.tracing import count, span
 
 
 def pad_to(n: int, multiple: int = 8) -> int:
@@ -73,33 +74,36 @@ def bpla_features(
     """Features for the BPLA kernel: profiles + structural p_left/right/unpair.
 
     ``bpps``: per-example base-pair probability matrices over alignment
-    columns (averaged over rows for alignments).
+    columns (averaged over rows for alignments).  The span
+    ``bpla_features``; the examples count in ``bpla.sequences``.
     """
     from .bpla import bpla_profiles
 
     n = len(alignments)
-    lmax = pad_to(max(a.length for a in alignments), pad_multiple)
-    prof = np.zeros((n, lmax, N_RNA), np.float32)
-    pl = np.zeros((n, lmax), np.float32)
-    pr = np.zeros((n, lmax), np.float32)
-    pu = np.zeros((n, lmax), np.float32)
-    lens = np.zeros(n, np.int32)
-    for i, (aln, bpp) in enumerate(zip(alignments, bpps)):
-        p = profile_from_alignment(aln)
-        L = p.shape[0]
-        base = p[:, :N_RNA]
-        tot = base.sum(axis=1, keepdims=True)
-        prof[i, :L] = np.where(tot > 0, base / np.where(tot > 0, tot, 1.0), 0.0)
-        a, b, c = bpla_profiles(bpp)
-        pl[i, :L], pr[i, :L], pu[i, :L] = a, b, c
-        lens[i] = L
-    return {
-        "profile": prof,
-        "p_left": pl,
-        "p_right": pr,
-        "p_unpair": pu,
-        "length": lens,
-    }
+    count("bpla.sequences", n)
+    with span("bpla_features"):
+        lmax = pad_to(max(a.length for a in alignments), pad_multiple)
+        prof = np.zeros((n, lmax, N_RNA), np.float32)
+        pl = np.zeros((n, lmax), np.float32)
+        pr = np.zeros((n, lmax), np.float32)
+        pu = np.zeros((n, lmax), np.float32)
+        lens = np.zeros(n, np.int32)
+        for i, (aln, bpp) in enumerate(zip(alignments, bpps)):
+            p = profile_from_alignment(aln)
+            L = p.shape[0]
+            base = p[:, :N_RNA]
+            tot = base.sum(axis=1, keepdims=True)
+            prof[i, :L] = np.where(tot > 0, base / np.where(tot > 0, tot, 1.0), 0.0)
+            a, b, c = bpla_profiles(bpp)
+            pl[i, :L], pr[i, :L], pu[i, :L] = a, b, c
+            lens[i] = L
+        return {
+            "profile": prof,
+            "p_left": pl,
+            "p_right": pr,
+            "p_unpair": pu,
+            "length": lens,
+        }
 
 
 def loop_profile_weights(alignments, bp_opts=None, *, device):

@@ -37,8 +37,11 @@ Dispatch: a CPU tensor takes the wrapper's plain version
 (``<wrapper>_reference``: the closure with an explicit Tu product, one
 ``bmm`` row at a time); a CUDA tensor launches the kernel in
 ``stem_kernel_torch/csrc/la_dp.cu`` or raises.  Nothing falls back.  Each
-wrapper counts its kernel launches in the counter ``la.<wrapper>.calls``,
-and those on a lane geometry in ``la.<wrapper>.lanes`` (utils.tracing).
+call, on either device, is a span ``la`` and counts its pairs in
+``la.<wrapper>.pairs`` and its padded cells (B * max_lx * max_ly) in
+``la.<wrapper>.cells_padded``; each kernel launch counts in
+``la.<wrapper>.calls``, and those on a lane geometry in
+``la.<wrapper>.lanes`` (utils.tracing).
 Every kernel runs on a lane geometry, lanes a pair by columns a lane, that
 the route picks from the padded shape: :func:`log_route` for the log
 kernels (K2, K5, ``LOG_ROUTE``), :func:`exp_route` for the exp ones (K3,
@@ -54,7 +57,7 @@ import functools
 
 import torch
 
-from ..utils.tracing import count
+from ..utils.tracing import count, span
 from ._build import load_library
 
 NEG = -1e30  # log of an empty cell; never -inf, so logaddexp never meets inf - inf
@@ -342,33 +345,43 @@ def _geometry_dims(geometry, max_lx: int, max_ly: int, log: bool = True,
     return [lanes, cols]
 
 
+def _call_span(wrapper, bsz: int, max_lx: int, max_ly: int):
+    """The span ``la`` of one call of ``wrapper``, its pairs and padded
+    cells counted from the shapes."""
+    count(f"la.{wrapper.__name__}.pairs", bsz)
+    count(f"la.{wrapper.__name__}.cells_padded", bsz * max_lx * max_ly)
+    return span("la")
+
+
 def _factored(wrapper, entry, reference, fx, fy, lx, ly, alpha, beta, gap, ext, *,
               log: bool, geometry=None):
     _check_factored(fx, fy, lx, ly)
-    if fx.device.type == "cpu":
-        return reference(fx, fy, lx, ly, alpha, beta, gap, ext)
-    sc = _scalars(beta, gap, ext)
     bsz, max_lx, rank = fx.shape
-    geo = _geometry_dims(geometry, max_lx, fy.shape[1], log, factored=True)
-    return _launch(wrapper, entry, [fx.data_ptr(), fy.data_ptr()], lx, ly,
-                   [bsz, max_lx, fy.shape[1], rank, *geo],
-                   [_f32(alpha), sc["beta"], sc["bg"], sc["be"], sc["lbg"], sc["lbe"]],
-                   fx.device)
+    with _call_span(wrapper, bsz, max_lx, fy.shape[1]):
+        if fx.device.type == "cpu":
+            return reference(fx, fy, lx, ly, alpha, beta, gap, ext)
+        sc = _scalars(beta, gap, ext)
+        geo = _geometry_dims(geometry, max_lx, fy.shape[1], log, factored=True)
+        return _launch(wrapper, entry, [fx.data_ptr(), fy.data_ptr()], lx, ly,
+                       [bsz, max_lx, fy.shape[1], rank, *geo],
+                       [_f32(alpha), sc["beta"], sc["bg"], sc["be"], sc["lbg"], sc["lbe"]],
+                       fx.device)
 
 
 def _materialised(wrapper, entry, reference, scores, lx, ly, beta, gap, ext,
                   scores2, alpha, *, log: bool, geometry=None):
     _check_scores(scores, scores2, lx, ly)
-    if scores.device.type == "cpu":
-        return reference(scores, lx, ly, beta, gap, ext, scores2=scores2, alpha=alpha)
-    sc = _scalars(beta, gap, ext)
     bsz, max_lx, max_ly = scores.shape
-    s2 = None if scores2 is None else scores2.data_ptr()
-    geo = _geometry_dims(geometry, max_lx, max_ly, log, factored=False)
-    return _launch(wrapper, entry, [scores.data_ptr(), s2], lx, ly,
-                   [bsz, max_lx, max_ly, *geo],
-                   [_f32(alpha), sc["beta"], sc["bg"], sc["be"], sc["lbg"], sc["lbe"]],
-                   scores.device)
+    with _call_span(wrapper, bsz, max_lx, max_ly):
+        if scores.device.type == "cpu":
+            return reference(scores, lx, ly, beta, gap, ext, scores2=scores2, alpha=alpha)
+        sc = _scalars(beta, gap, ext)
+        s2 = None if scores2 is None else scores2.data_ptr()
+        geo = _geometry_dims(geometry, max_lx, max_ly, log, factored=False)
+        return _launch(wrapper, entry, [scores.data_ptr(), s2], lx, ly,
+                       [bsz, max_lx, max_ly, *geo],
+                       [_f32(alpha), sc["beta"], sc["bg"], sc["be"], sc["lbg"], sc["lbe"]],
+                       scores.device)
 
 
 def la_log_factored(fx, fy, lx, ly, alpha, beta, gap, ext) -> torch.Tensor:
