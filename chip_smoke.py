@@ -219,7 +219,20 @@ Phases (the first failure exits non-zero; nothing is caught):
    must give the same values bit for bit; then a call's time (CUDA events,
    in turns with the plain loop, and over 50 calls), its device time (CUDA
    graph), the plain loop's time and the bound at the Gram's shape, the
-   score-tensor route's at B = 256, 152 x 152, and both at 1500 x 1500.
+   score-tensor route's at B = 256, 152 x 152, and both at 1500 x 1500;
+23. the fold DP kernel (``csrc/fold_dp.cu``) against the plain engine on the
+   card (``fold.mccaskill_scaled``'s Python span loops, on the same LUTs), BPP
+   within 3e-5 and log Z within 1e-5 relative, bit for bit below n = 1,000
+   (the kernel sums in torch's orders), one launch and one
+   ``fold.batches.kernel`` a fold: the benchmark's fold batch (200 hairpin
+   mutants and shuffles of 110-130 nt), a batch of 64, the fast tier,
+   CONTRAfold parameters, an alifold batch of 64 (8 rows, 136 columns,
+   w_extra, pt_override, two all-gap dummies of length 0), 4 sequences of
+   389-420 nt (past the shared-memory ring) and one of 1,000 nt; at each, the
+   wrapper's time on prebuilt LUTs and the whole fold's (CUDA events), the
+   kernel's device time and the launches of a whole fold (torch.profiler),
+   which must not grow with n, the plain engine's time and the bound.  Run
+   alone: ``python3 chip_smoke.py --fold-dp``.
 
 Before each path every launch count is set to 0, and it is read just after;
 phases 16-18 must leave every K1-K6 count at 0, and launch the string
@@ -236,8 +249,9 @@ them, 67 TFLOP/s f32, 495 TFLOP/s TF32 (three passes for 3xTF32) or 989
 TFLOP/s bf16 (the H100 SXM's published peaks).  K1 has two entries, one a
 route, each in the main path's mode, "high", at its busiest shape; their
 ``library_ms`` is the f32 torch.bmm chain, K2-K6's null.  The string
-kernel's DP kernel (SK) replaces no Pallas kernel (``replaces`` null); its
-launches are the stem train flow's (phase 4), its numbers phase 22's.  ``ms`` is CUDA events around repeated wrapper
+kernel's DP kernel (SK) and the fold DP kernel (FD) replace no Pallas kernel
+(``replaces`` null); their launches are the stem train flow's (phase 4), their
+numbers phases 22's and 23's (FD's ``fold_ms`` the whole fold with its LUTs).  ``ms`` is CUDA events around repeated wrapper
 calls, host time between launches included; ``device_ms`` the same calls
 captured in a CUDA graph and replayed under CUDA events, except K6's: its
 wrapper reads max(lx) on the host, so its ``device_ms`` is the summed time
@@ -342,6 +356,21 @@ STRING_PROFILE_OPS = 20
 TRACE_N = 20  # sequences a class of the --trace-dir run
 SMO_N = 2000  # points of the random PSD Gram of the SMO comparison
 SMO_DIM = 10  # their dimension (RBF kernel, gamma 1 / (2 SMO_DIM))
+# phase 23: the fold DP kernel; (label, batch, shortest, longest, parameters) of
+# each case: the benchmark's family200 fold batch, an alifold-sized batch of
+# 64, the fast tier and CONTRAfold, a width past the kernel's shared-memory
+# ring, one long sequence
+FOLD_CASES = (("family200", 200, 110, 130, "default"), ("batch64", 64, 100, 128, "default"),
+              ("fast", 64, 100, 128, "fast"), ("contrafold", 64, 100, 128, "contrafold"),
+              ("past_ring", 4, 380, 420, "default"), ("n1000", 1, 1000, 1000, "default"))
+FOLD_ALIFOLD = (62, 2, 8, 136)  # alignments (ALI_COLS), all-gap dummies, rows, padded width
+FOLD_BPP_ATOL = 3e-5  # BPP, kernel against the plain engine (tests/test_torch_fold_dp.py)
+FOLD_LOGZ_RTOL = 1e-5
+FOLD_BITS_BELOW = 1000  # widths at which the kernel must give the plain engine's bits
+# operations a multiply-add and a multiply-multiply-add of the kernel count
+# (2, 3), and the other operations a lane's row does (the hairpin, stacking,
+# explicit and closing terms, the Qm1 update, the rescale, the shadows)
+FOLD_ROW_OPS = 40
 # phase 20: the rest of the fold layer
 ALI_ROWS = 8  # rows an alignment, as an Rfam seed alignment
 ALI_COLS = (110, 130)  # columns an alignment of the alifold corpus
@@ -1545,6 +1574,182 @@ def string_phase(dev, smi: str) -> dict:
             "bound_by": bound_by, "shape": shape}
 
 
+def fold_ops(lengths, tab) -> float:
+    """Operations the fold DP kernel does for sequences of ``lengths``: per
+    lane and row, the interior offsets that reach a row (a multiply-add
+    each), the multiloop split sums (inside: 5 a term; outside: 3 a term of
+    the Om row, 5 of Om1's) and FOLD_ROW_OPS."""
+    total = 0.0
+    for L in np.asarray(lengths, np.int64):
+        d = np.arange(1, L)
+        lanes = L - d
+        k_in = np.array([int((tab.t < x).sum()) for x in d], np.float64)
+        k_out = np.array([int((tab.t < L - x).sum()) for x in d], np.float64)
+        inside = lanes * (2 * k_in + 5 * np.maximum(d - 2, 0) + FOLD_ROW_OPS)
+        i_sum = lanes * (lanes - 1) / 2  # sum over lanes i of i
+        om_row = 3 * np.maximum(lanes - 2, 0) * np.maximum(lanes - 1, 0) / 2
+        outside = lanes * (2 * k_out + FOLD_ROW_OPS) + 5 * i_sum + om_row
+        total += float(inside.sum() + outside.sum())
+    return total
+
+
+def fold_inputs(case: tuple, rng: np.random.Generator):
+    """(codes, lengths, parameters, keyword arguments) of a FOLD_CASES case:
+    hairpin families and their shuffles, as the benchmark's corpus."""
+    from stem_kernel_torch.fold.contrafold import contrafold_energy_params, default_weights
+    from stem_kernel_torch.fold.params import default_params, fast_variant
+    from stem_kernel_torch.io.alphabet import encode
+    from stem_kernel_torch.utils.shuffle import dinucleotide_shuffle
+
+    _, bsz, lo, hi, variant = case
+    lens = rng.integers(lo, hi + 1, bsz)
+    lens[0] = hi
+    seqs = []
+    for L in lens:
+        s = make_family(rng, 1, int(L))[0]
+        seqs.append(dinucleotide_shuffle(s, rng) if rng.random() < 0.5 else s)
+    codes = np.zeros((bsz, hi), np.uint8)
+    for b, s in enumerate(seqs):
+        codes[b, :len(s)] = encode(s)
+    params = {"default": default_params, "fast": lambda: fast_variant(default_params()),
+              "contrafold": lambda: contrafold_energy_params(default_weights())}[variant]()
+    return codes, lens.astype(np.int32), params, {}
+
+
+def fold_alifold_inputs(rng: np.random.Generator):
+    """The alifold case: FOLD_ALIFOLD's alignments padded as
+    fold.bpmatrix.alifold_bpps pads them on the card (w_extra, pt_override,
+    all-gap dummies of length 0)."""
+    from stem_kernel_torch.fold.bpmatrix import alifold_covariance
+    from stem_kernel_torch.fold.params import default_params
+
+    from stem_kernel_torch.io.profile import Alignment
+
+    n_aln, dummies, rows, width = FOLD_ALIFOLD
+    alns = [Alignment(rows=r) for r in make_alignments(rng, make_family(rng, n_aln, 120),
+                                                       *ALI_COLS)]
+    bsz = n_aln + dummies
+    codes = np.full((bsz, rows, width), 4, np.int64)
+    w_extra = np.zeros((bsz, width, width), np.float32)
+    pt = np.full((bsz, width, width), -1, np.int32)
+    lens = np.zeros(bsz, np.int64)
+    for b, aln in enumerate(alns):
+        _, we, pm, code = alifold_covariance(aln)
+        n = aln.length
+        codes[b, :code.shape[0], :n] = code
+        w_extra[b, :n, :n] = we
+        pt[b, :n, :n] = pm
+        lens[b] = n
+    return codes, lens, default_params(), {"w_extra": w_extra, "pt_override": pt}
+
+
+def fold_phase(smi: str) -> dict:
+    """Phase 23: the fold DP kernel (csrc/fold_dp.cu) against the plain
+    engine on the card at each case's shape: BPP and log Z within their
+    bands, one launch and one ``fold.batches.kernel`` a fold; a call's time
+    (the kernel's wrapper; the whole fold with its LUTs) against the plain
+    engine's, the kernel's device time and the launches of a whole fold
+    (torch.profiler), and its bound.  Returns its entry of the kernels line
+    (no launches: phase 4 counts them)."""
+    from stem_kernel_torch.fold import mccaskill_scaled as ms
+    from stem_kernel_torch.ops import fold_dp
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 23)
+    dev = torch.device("cuda")
+    out, launch_counts = {"max_abs_err": 0.0, "max_rel_err": 0.0}, {}
+    cases = [(c[0], lambda c=c: fold_inputs(c, rng)) for c in FOLD_CASES]
+    cases.insert(2, ("alifold", lambda: fold_alifold_inputs(rng)))
+    for label, make in cases:
+        codes, lens, params, kw = make()
+        fold = lambda: ms.mccaskill_bpp_batch_scaled(codes, lens, params, device=dev, **kw)  # noqa: E731,B023
+        plain = lambda: ms.mccaskill_bpp_batch_scaled_reference(codes, lens, params, device=dev, **kw)  # noqa: E731,B023
+        before, launched = counter("fold.batches.kernel"), fold_dp.launches()
+        got_bpp, got_z = fold()
+        torch.cuda.synchronize()
+        check(counter("fold.batches.kernel") == before + 1 and fold_dp.launches() == launched + 1,
+              f"fold {label}: not one fold DP launch")
+        t0 = time.perf_counter()
+        want_bpp, want_z = plain()
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        check(bool(torch.isfinite(got_bpp).all() and torch.isfinite(got_z).all()),
+              f"fold {label}: the kernel is not finite")
+        bpp_err = float((got_bpp - want_bpp).abs().max())
+        z_err = float(((got_z - want_z).abs() / want_z.abs().clamp(min=1e-30)).max())
+        same = float((got_bpp == want_bpp).float().mean())
+        bits = bool(torch.equal(got_bpp, want_bpp) and torch.equal(got_z, want_z))
+        print(f"fold DP parity, {label} (B={len(lens)}, n={codes.shape[-1]}, lengths "
+              f"{int(lens.min())}-{int(lens.max())}): BPP max abs {bpp_err:.3e} (gate "
+              f"{FOLD_BPP_ATOL}), log Z max rel {z_err:.3e} (gate {FOLD_LOGZ_RTOL}); BPP values "
+              f"equal bit for bit {same:.6f}, the whole fold {bits}")
+        check(bpp_err <= FOLD_BPP_ATOL, f"fold {label}: BPP off the plain engine")
+        check(z_err <= FOLD_LOGZ_RTOL, f"fold {label}: log Z off the plain engine")
+        if codes.shape[-1] < FOLD_BITS_BELOW:
+            check(bits, f"fold {label}: not the plain engine's bits")
+        if label in ("family200", "batch64", "fast", "contrafold", "alifold"):
+            out["max_abs_err"] = max(out["max_abs_err"], bpp_err)
+            out["max_rel_err"] = max(out["max_rel_err"], z_err)
+        # times: the wrapper alone on prebuilt LUTs, the whole fold, the plain engine
+        with torch.no_grad():
+            c, ln, we, po = ms._inputs(codes, lens, kw.get("w_extra"), kw.get("pt_override"), dev)
+            tabs = ms._kernel_tables(c, ln, params, we, po)
+            ln32 = ln.to(torch.int32)
+        kernel = lambda: fold_dp.fold_dp(tabs, ln32, params)  # noqa: E731,B023
+        reps = 3 if label in ("past_ring", "n1000") else 10
+        k_ms = cuda_ms(kernel, reps)
+        f_ms = cuda_ms(fold, reps)
+        dev_ms, k_launches = kernel_trace(kernel, 2, "fold_dp")
+        all_ms, _ = kernel_trace(fold, 2, "")
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fold()
+            torch.cuda.synchronize()
+        launch_counts[label] = sum(e.count for e in prof.key_averages()
+                                   if e.device_type == torch.autograd.DeviceType.CUDA)
+        tab = fold_dp.offset_table(params)
+        ops = fold_ops(lens, tab)
+        n_tabs = len(fold_dp.table_names(params))
+        rows = codes.shape[1] if codes.ndim == 3 else 1
+        nbytes = 4 * (n_tabs * float((lens.astype(np.float64) * (lens + 1) / 2).sum())
+                      + len(lens) * codes.shape[-1] ** 2)
+        bound_ms, bound_by = bound(nbytes, ops)
+        smem, vec_bytes = fold_dp.route(codes.shape[-1], params)
+        dev_s = "not measured" if dev_ms is None else f"{dev_ms:.4f}"
+        print(f"fold DP times on {smi}, {label}: kernel {k_ms:.4f} ms a call (device {dev_s} ms, "
+              f"{k_launches} launches), whole fold {f_ms:.3f} ms (device {all_ms} ms, "
+              f"{launch_counts[label]} launches, the LUT builds' and the kernel's), plain engine "
+              f"{1e3 * plain_s:.1f} ms; bound {bound_ms:.4f} ms by {bound_by} ({ops:.3e} "
+              f"operations, {nbytes:.3e} bytes); work vectors in "
+              f"{'shared' if smem else 'device'} memory ({vec_bytes} bytes a block; "
+              f"{rows} rows an entry)")
+        if label == "family200":
+            out.update({"ms": k_ms, "device_ms": dev_ms, "fold_ms": f_ms,
+                        "plain_ms": 1e3 * plain_s, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "launches_a_call": k_launches,
+                        "shape": f"B={len(lens)}, n={codes.shape[-1]}, lengths "
+                                 f"{int(lens.min())}-{int(lens.max())}"})
+    check(launch_counts["n1000"] <= launch_counts["family200"],
+          f"a fold's launches grow with n: {launch_counts}")
+    print(f"fold DP, launches of a whole fold by case: {launch_counts}")
+    print(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def fold_main() -> int:
+    """Phase 23 alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(json.dumps({"FD": fold_phase(smi)}))
+    return 0
+
+
 def cpu_model() -> str:
     """The host CPU's model name, or its vendor, family and model numbers
     where /proc/cpuinfo names none; with the count of CPUs."""
@@ -2642,6 +2847,10 @@ def main() -> int:
     train_launches = counter("k1.calls.cluster")
     train_wide = counter("k1.calls.tiles")
     train_string = counter("string.calls.kernel")
+    train_fold = counter("fold.batches.kernel")
+    check(train_fold > 0 and train_fold == counter("fold.batches"),
+          f"the stem path folded off the fold DP kernel: {train_fold} launches, "
+          f"{counter('fold.batches')} fold batches")
     svm_tools.train_main([p("km.dat"), p("km.model")])
     t0 = time.perf_counter()
     stem_kernel_lite.main(["--device", "cuda", "-n", p("test.dat"),
@@ -3333,6 +3542,7 @@ def main() -> int:
                  full_train, {"km.dat": g_stem, "bpla.dat": g_bpla, "flagship.npy": g_fwd,
                               "la.dat": g_la})
     report["SK"] = {**string_phase(dev, smi), "launches": train_string}
+    report["FD"] = {**fold_phase(smi), "launches": train_fold}
 
     meta = {
         "K1": ("stem_fixed_point", "stem_kernel_torch/csrc/stem_fixed_point.cu",
@@ -3350,9 +3560,11 @@ def main() -> int:
         "K6": ("full_stem_banded_log", "stem_kernel_torch/csrc/full_stem_banded.cu",
                "stem_kernel_tpu/ops/pallas_full_stem.py:426"),
         "SK": ("string_dp_profile", "stem_kernel_torch/csrc/string_dp.cu", None),
+        "FD": ("fold_dp", "stem_kernel_torch/csrc/fold_dp.cu", None),
     }
     keys = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    extra = ("device_ms", "max_rel_err", "mode", "shape", "launches_a_call", "max_abs_err_lanes",
+    extra = ("device_ms", "fold_ms", "max_rel_err", "mode", "shape", "launches_a_call",
+             "max_abs_err_lanes",
              "max_abs_err_one_warp",
              "max_rel_err_lanes", "max_rel_err_one_warp")
     # K1's library_ms is the f32 torch.bmm chain at the same pair-trips
@@ -3373,4 +3585,6 @@ if __name__ == "__main__":
         sys.exit(k6_values(sys.argv[2]))
     if sys.argv[1:2] == ["--rank-worker"]:
         sys.exit(rank_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--fold-dp"]:
+        sys.exit(fold_main())
     sys.exit(main())

@@ -20,6 +20,13 @@ State is updated in place (the JAX version is functional); each step reads
 everything it needs before it writes its row.  All DP arithmetic is f32; the
 LUTs are built in f64 and cast once.  Terms more than ~87 log units below a
 row's dominant contribution underflow, as in the reference engine.
+
+:func:`mccaskill_bpp_batch_scaled` routes by device: CPU tensors run these
+loops (:func:`mccaskill_bpp_batch_scaled_reference`, the plain version);
+on the card the whole DP of a batch is one launch of the fold DP kernel
+(``ops/fold_dp.py``, ``csrc/fold_dp.cu``), which reads the same LUTs
+(:func:`_kernel_tables`), gives these loops' bits on the card and raises
+where it cannot run.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import fold_dp
 from .params import EnergyParams, default_params, loop_len_score
 from .tables import build_luts
 
@@ -469,6 +477,52 @@ def _outside_scaled(codes, length, params, tabs, ins):
                        torch.zeros((), dtype=DT, device=dev))
 
 
+def _kernel_tables(codes, length, params, w_extra=None, pt_override=None) -> dict:
+    """The LUTs the fold DP kernel reads (``fold_dp.table_names``), each a
+    contiguous (B, n, n) f32 view in span layout, with the values
+    :func:`_span_tables` gives: log scores for ``fold_dp.LOG_TABLES``,
+    exp(min(score, 60)) for the others.  One skew for all of them."""
+    luts = build_luts(codes, length, params, w_extra, pt_override)
+    names = fold_dp.table_names(params)
+    stacked = torch.stack([luts[k] for k in names]).to(DT)  # (T, B, n, n)
+    t, bsz, n, _ = stacked.shape
+    span = _skew_ij_to_span(stacked.reshape(t * bsz, n, n), NEG).reshape(t, bsz, n, n)
+    span = span.contiguous()
+    n_log = len(fold_dp.LOG_TABLES)
+    span[n_log:].clamp_(max=60.0).exp_()
+    return dict(zip(names, span.unbind(0)))
+
+
+def _inputs(codes_batch, lengths, w_extra, pt_override, device):
+    codes = torch.as_tensor(np.asarray(codes_batch).astype(np.int64), device=device)
+    lens = torch.as_tensor(np.asarray(lengths, np.int64), device=device)
+    we = (None if w_extra is None
+          else torch.as_tensor(np.asarray(w_extra, np.float32), device=device))
+    po = (None if pt_override is None
+          else torch.as_tensor(np.asarray(pt_override, np.int64), device=device))
+    return codes, lens, we, po
+
+
+def mccaskill_bpp_batch_scaled_reference(
+    codes_batch: np.ndarray,
+    lengths: np.ndarray,
+    params: EnergyParams | None = None,
+    *,
+    w_extra: np.ndarray | None = None,
+    pt_override: np.ndarray | None = None,
+    device,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of :func:`mccaskill_bpp_batch_scaled` on any
+    device: the Python loops over the span length above."""
+    params = params or default_params()
+    codes, lens, we, po = _inputs(codes_batch, lengths, w_extra, pt_override, device)
+    with torch.no_grad():
+        tabs = _span_tables(codes, lens, params, we, po)
+        ins = _inside_scaled(codes, lens, params, tabs)
+        bpp = _outside_scaled(codes, lens, params, tabs, ins)
+    return bpp, ins["logZ"]
+
+
 def mccaskill_bpp_batch_scaled(
     codes_batch: np.ndarray,
     lengths: np.ndarray,
@@ -487,18 +541,16 @@ def mccaskill_bpp_batch_scaled(
     optional (B, n, n) pair types, -1 = cannot pair (see tables.build_luts).
     All-gap rows and length 0 add no term to any sum.  Memory is
     O(B n^2) for the DP and O(B R n^2) for the LUTs: callers cut large
-    batches (fold.bpmatrix does).
+    batches (fold.bpmatrix does).  CPU tensors take the plain version
+    (:func:`mccaskill_bpp_batch_scaled_reference`), any other device the
+    fold DP kernel, which raises off a CUDA device.
     """
     params = params or default_params()
-    codes_np = np.asarray(codes_batch)
-    codes = torch.as_tensor(codes_np.astype(np.int64), device=device)
-    lens = torch.as_tensor(np.asarray(lengths, np.int64), device=device)
-    we = (None if w_extra is None
-          else torch.as_tensor(np.asarray(w_extra, np.float32), device=device))
-    po = (None if pt_override is None
-          else torch.as_tensor(np.asarray(pt_override, np.int64), device=device))
+    if torch.device(device).type == "cpu":
+        return mccaskill_bpp_batch_scaled_reference(
+            codes_batch, lengths, params, w_extra=w_extra, pt_override=pt_override,
+            device=device)
+    codes, lens, we, po = _inputs(codes_batch, lengths, w_extra, pt_override, device)
     with torch.no_grad():
-        tabs = _span_tables(codes, lens, params, we, po)
-        ins = _inside_scaled(codes, lens, params, tabs)
-        bpp = _outside_scaled(codes, lens, params, tabs, ins)
-    return bpp, ins["logZ"]
+        tabs = _kernel_tables(codes, lens, params, we, po)
+        return fold_dp.fold_dp(tabs, lens.to(torch.int32), params)

@@ -132,4 +132,17 @@ def load_library() -> ctypes.CDLL:
     fn = lib.string_dp_scores_f32
     fn.argtypes = [p] + [i] * 3 + [f, p, p]
     fn.restype = ctypes.c_int
+    # (tabs, expl_ds, expl_sh, n_expl, ncls, cdim, n_off, off_w, off_meta,
+    #  cpow, c_lin, c_ext, lengths, batch, n, scratch, bpp, logz, stream)
+    fn = lib.fold_dp_f32
+    fn.argtypes = [p] * 3 + [i] * 4 + [p] * 3 + [f, f, p, i, i] + [p] * 4
+    fn.restype = ctypes.c_int
+    # (batch, n, ncls, cdim, n_off)
+    fn = lib.fold_dp_scratch_floats
+    fn.argtypes = [i] * 5
+    fn.restype = ctypes.c_longlong
+    # (n, ncls, cdim, n_off, bytes)
+    fn = lib.fold_dp_route
+    fn.argtypes = [i] * 4 + [p]
+    fn.restype = ctypes.c_int
     return lib
